@@ -1,0 +1,110 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use.
+
+Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so`` under the package
+(a directory the repository's ``.gitignore`` lists) with a plain C interface,
+loaded with ``ctypes``. The hash covers the source and the flags, so an edit
+rebuilds. ``build_all`` starts one ``nvcc`` per source, all at once. Only the
+sources in this package are compiled; a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_logs: dict[str, str] = {}
+
+
+def sources() -> list[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> tuple[str, str]:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source; returns (process, tmp path, target) or
+    None when the library is already built."""
+    src, target = _target(name)
+    if os.path.exists(target):
+        return None
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError:
+        os.unlink(tmp)
+        raise
+    return proc, tmp, target
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, target = job
+    out, _ = proc.communicate()
+    _logs[name] = out
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all() -> dict[str, str]:
+    """Build every source in parallel; returns the compiler output by name
+    (empty for a library that was already built)."""
+    with _lock:
+        jobs = {name: _start(name) for name in sources()}
+        errors = []
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            try:
+                _finish(name, job)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return {name: _logs.get(name, "") for name in jobs}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        if name not in _libs:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            _libs[name] = ctypes.CDLL(_target(name)[1])
+        return _libs[name]

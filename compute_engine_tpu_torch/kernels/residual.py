@@ -1,0 +1,146 @@
+"""Fused binary residual block: sign + 3x3 one-padded bconv + transform + add.
+
+``binary_residual_block`` is the port of the Pallas kernel
+``compute_engine_tpu.kernels.residual._block_kernel``: on a CUDA tensor it
+launches the hand-written kernel in ``csrc/residual_block.cu``; on a CPU
+tensor it runs ``binary_residual_block_plain``, the plain PyTorch version of
+the same function. With ``has_residual=False`` it is the same conv without
+the add, for a conv whose consumer is not its residual add.
+
+Rounding: the conv result is an exact integer on both paths. The epilogue
+computes ``clip(2*acc) * mul`` and then ``+ bias`` as two roundings (no FMA),
+rounds to the activation type, and adds ``x`` with one more rounding, as the
+unfused "store, then add" chain does. The kernel therefore equals the plain
+version bit for bit; against JAX it may differ by one FMA rounding, as
+JAX's own fused and unfused paths do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.params import BConv2DParams
+from ..core.transforms import OutputTransform
+from ..core.types import Padding
+from .bconv2d import bconv2d_mxu_float_in
+
+__all__ = ["binary_residual_block", "binary_residual_block_plain",
+           "residual_block_supported"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def residual_block_supported(x_shape, params: BConv2DParams, c_out: int,
+                             fh: int, fw: int, has_residual: bool = True
+                             ) -> bool:
+    """Static conditions under which the fused kernel applies: a 3x3,
+    stride-1, undilated, ungrouped conv with SAME one-padding, and as many
+    output channels as input channels when the residual is added."""
+    c = x_shape[-1]
+    if (fh, fw) != (3, 3) or (has_residual and c != c_out):
+        return False
+    return (params.groups == 1 and params.stride == (1, 1)
+            and params.dilation == (1, 1)
+            and params.padding == Padding.SAME and params.pad_value == 1)
+
+
+def binary_residual_block_plain(x, packed_filter, transform: OutputTransform,
+                                params: BConv2DParams, has_residual=True,
+                                unpacked_filter=None):
+    """Plain PyTorch version: the unfused conv, rounded to ``x.dtype``, plus
+    ``x``."""
+    y = bconv2d_mxu_float_in(x, packed_filter, transform, params,
+                             output_kind="float",
+                             unpacked_filter=unpacked_filter).to(x.dtype)
+    return x + y if has_residual else y
+
+
+def _library():
+    from ._build import load
+
+    lib = load("residual_block")
+    fn = lib.ce_residual_block
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.ce_error_string.argtypes = [ctypes.c_int]
+        lib.ce_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x, packed_filter, transform, has_residual):
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, not {x.device}")
+    n, h, w, c = x.shape
+    c_out = packed_filter.shape[0]
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"residual block kernel takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if packed_filter.shape[1:] != (3, 3, -(-c // 32)):
+        raise ValueError(f"packed filter {tuple(packed_filter.shape)} does "
+                         f"not match {c} input channels")
+    if packed_filter.dtype != torch.int32:
+        raise TypeError("packed filter words must be int32")
+    mul = torch.as_tensor(transform.multiplier, dtype=torch.float32,
+                          device=x.device)
+    bias = torch.as_tensor(transform.bias, dtype=torch.float32,
+                           device=x.device)
+    for name, t in (("x", x), ("packed_filter", packed_filter), ("mul", mul),
+                    ("bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if mul.shape != (c_out,) or bias.shape != (c_out,):
+        raise ValueError("multiplier and bias need one value per channel")
+    out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.ce_residual_block(
+        x.data_ptr(), packed_filter.data_ptr(), mul.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), n, h, w, c, c_out,
+        int(transform.clamp_min), int(transform.clamp_max),
+        int(has_residual), _DTYPE_CODES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError("residual block kernel launch failed: "
+                           + lib.ce_error_string(rc).decode())
+    binary_residual_block.launches += 1
+    return out
+
+
+def binary_residual_block(x, packed_filter, transform: OutputTransform,
+                          params: BConv2DParams, has_residual=True,
+                          unpacked_filter=None):
+    """``x + float_transform(bconv3x3_onepad(sign(x)))`` in one kernel.
+
+    Args:
+      x: (N, H, W, C) float32 or bfloat16 activations.
+      packed_filter: (C_out, 3, 3, ceil(C/32)) int32 packed filter.
+      transform: float OutputTransform (multiplier, bias, clamps).
+      params: stride-1 SAME one-padding BConv2DParams, groups=1.
+      has_residual: add ``x`` (needs C_out == C); False returns the conv.
+      unpacked_filter: (3, 3, C, C_out) +-1 filter for the plain version.
+
+    Returns (N, H, W, C_out) in ``x.dtype``. CPU tensors take the plain
+    version; CUDA tensors take the kernel, which counts its launches in
+    ``binary_residual_block.launches``.
+    """
+    c_out, fh, fw, _ = packed_filter.shape
+    if not residual_block_supported(x.shape, params, c_out, fh, fw,
+                                    has_residual):
+        raise ValueError("fused residual block unsupported for "
+                         f"shape {tuple(x.shape)} / filter "
+                         f"{tuple(packed_filter.shape)}")
+    if x.device.type == "cpu":
+        return binary_residual_block_plain(x, packed_filter, transform,
+                                           params, has_residual,
+                                           unpacked_filter)
+    if x.device.type != "cuda":
+        raise ValueError(f"no residual block kernel for device {x.device}")
+    return _launch(x, packed_filter, transform, has_residual)
+
+
+binary_residual_block.launches = 0

@@ -1,0 +1,126 @@
+"""The port stands alone and never falls back quietly to the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from compute_engine_tpu_torch.core import BConv2DParams, Padding
+from compute_engine_tpu_torch.core.transforms import OutputTransform
+from compute_engine_tpu_torch.kernels import _build, residual
+from compute_engine_tpu_torch.models import (convert_model, init_model,
+                                             packed_apply, tiny_quicknet)
+from compute_engine_tpu_torch.runtime import Interpreter
+from compute_engine_tpu_torch.runtime.benchmark import benchmark_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import compute_engine_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "compute_engine_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    """Every module of the port (and chip_smoke.py) imports neither jax nor
+    the JAX package. A subprocess, since this process has JAX loaded."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 15
+    assert bad.strip() == "[]"
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_chip_smoke_fails_without_card():
+    _no_card()
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_points_raise_without_card():
+    _no_card()
+    spec = tiny_quicknet(num_classes=4)
+    layers = convert_model(spec, init_model(spec, seed=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Interpreter(spec, layers)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        packed_apply(spec, layers, np.zeros((1, 32, 32, 3), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark_model(spec, batch=1)
+    with pytest.raises(ValueError, match="no CPU mode"):
+        benchmark_model(spec, batch=1, device="cpu")
+
+
+def _block_args(device):
+    c = 32
+    x = torch.zeros((1, 4, 4, c), device=device)
+    pf = torch.zeros((c, 3, 3, 1), dtype=torch.int32, device=device)
+    tr = OutputTransform(multiplier=np.ones(c, np.float32),
+                         bias=np.zeros(c, np.float32))
+    params = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
+    return x, pf, tr, params
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The launch path takes CUDA tensors or raises: it never runs the plain
+    version in the kernel's place, and counts nothing."""
+    x, pf, tr, _ = _block_args("cpu")
+    before = residual.binary_residual_block.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        residual._launch(x, pf, tr, has_residual=True)
+    assert residual.binary_residual_block.launches == before
+
+
+def test_wrapper_has_no_fallback_for_other_devices():
+    x, pf, tr, params = _block_args("meta")
+    with pytest.raises(ValueError, match="no residual block kernel"):
+        residual.binary_residual_block(x, pf, tr, params)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    x, pf, tr, params = _block_args("cpu")
+    before = residual.binary_residual_block.launches
+    got = residual.binary_residual_block(x, pf, tr, params)
+    want = residual.binary_residual_block_plain(x, pf, tr, params)
+    assert torch.equal(got, want)
+    assert residual.binary_residual_block.launches == before
+
+
+def test_build_lists_repo_sources_and_fails_loudly(monkeypatch, tmp_path):
+    assert "residual_block" in _build.sources()
+    assert _build.BUILD_DIR == os.path.join(REPO, "compute_engine_tpu_torch",
+                                            "build")
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert "compute_engine_tpu_torch/build/" in f.read().split()
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(OSError):
+        _build.load("residual_block")
+    assert os.listdir(tmp_path) == []  # no half-written library is left
+    failing = tmp_path / "failing-nvcc"
+    failing.write_text("#!/bin/sh\necho 'error: no card here'\nexit 1\n")
+    failing.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(failing))
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed.*no card here"):
+        _build.build_all()
+    assert os.listdir(tmp_path) == ["failing-nvcc"]
