@@ -9,20 +9,33 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Build every CUDA source of the port with nvcc, in parallel.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes QuickNet gives it at batch 128 and at a ragged channel count:
-   ``torch.equal`` with an identity transform, with a random transform, and
-   without the residual add.
-3. Drive the main path: QuickNet (224x224x3, sections 64/128/256/512, 4+4+4+4
-   blocks, 1000 classes) at batch 128 with random weights from seed 0,
-   ``init_model -> convert_model -> Interpreter.predict``; the launch counts
-   are set to 0 just before and read just after. Check the output (finite,
-   probabilities, shape) and its top-1 against the same forward through the
-   plain versions on the card.
-4. Time ``benchmark_model`` (images/s), print a torch.profiler breakdown of
-   the forward's device time by kernel, and time each kernel at each shape
-   beside its bound, its plain version and a library yardstick (cuDNN's
-   bf16 conv of pre-signed +-1 inputs, timed only).
+2. Hold each kernel against its plain PyTorch version on the card,
+   ``torch.equal``:
+   - the residual block at the shapes QuickNet gives it at batch 128 and at
+     a ragged channel count, with an identity transform, with a random
+     transform, and without the residual add;
+   - the binary GEMM at the six shapes BinaryAlexNet gives it at batch 128,
+     with their output kinds; at a ragged shape in all four output kinds
+     with a random transform and random thresholds; and in its split-K form,
+     forced at a ragged K.
+3. Drive the main paths, each with the launch counts set to 0 just before
+   and read just after, with random weights from seed 0:
+   - QuickNet (224x224x3, sections 64/128/256/512, 4+4+4+4 blocks, 1000
+     classes) at batch 128, ``init_model -> convert_model ->
+     Interpreter.predict``: 16 residual block launches;
+   - BinaryAlexNet (224x224x3, 1000 classes) at batch 128 in the packed
+     domain, ``init_model -> convert_model -> packed_apply(domain="packed")``:
+     6 bgemm launches.
+   Check each output (finite, probabilities, shape) and its top-1 against
+   the same forward through the plain versions on the card; BinaryAlexNet's
+   also against its float-domain forward. Then run every zoo model once at
+   batch 4 in the float domain, against the plain versions.
+4. Time ``benchmark_model`` (images/s) for both models (BinaryAlexNet in both
+   domains), print a torch.profiler breakdown of each forward's device time
+   by kernel, and time each kernel at each main-path shape beside its bound,
+   its plain version and a library yardstick, timed only: cuDNN's bf16 conv
+   of pre-signed +-1 inputs for the block, ``torch._int_mm`` (cuBLAS int8)
+   of the unpacked +-1 operands for the GEMM.
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -46,6 +59,19 @@ QUICKNET_BLOCKS = [(128, 56, 56, 64), (128, 28, 28, 128), (128, 14, 14, 256),
 RAGGED = (4, 9, 9, 48)
 BLOCKS_PER_SHAPE = 4  # QuickNet: 4 blocks in each of the four sections
 TOLERANCE = "torch.equal (bit for bit)"
+
+# BinaryAlexNet's binary GEMMs at batch 128 in the packed domain:
+# (layer, M, KW, N, output kind).
+ALEXNET_GEMMS = [
+    ("conv2", 128 * 27 * 27, 25 * 3, 256, "bitpacked"),
+    ("conv3", 128 * 13 * 13, 9 * 8, 384, "bitpacked"),
+    ("conv4", 128 * 13 * 13, 9 * 12, 384, "bitpacked"),
+    ("conv5", 128 * 13 * 13, 9 * 12, 256, "bitpacked"),
+    ("fc1", 128, 288, 4096, "bitpacked"),
+    ("fc2", 128, 128, 4096, "float"),
+]
+RAGGED_GEMM = (1000, 77, 100)
+SPLITK_BLOCK_KW = 32  # forces 3 blocks of K at KW = 77, the last ragged
 
 
 def check(cond, msg):
@@ -151,6 +177,48 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gemm_case(rng, m, kw, n, kind, device, n_major=True):
+    """Random operands of one binary GEMM: lhs (M, KW) words, rhs (KW, N)
+    words (the transposed view of an (N, KW) filter, as the path passes it,
+    or a contiguous (KW, N) tensor) and the epilogue arguments of ``kind``."""
+    import numpy as np
+    import torch
+
+    def words(shape):
+        return torch.from_numpy(
+            rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+            .view(np.int32)).to(device)
+
+    lhs = words((m, kw))
+    rhs = words((n, kw)).t() if n_major else words((kw, n))
+    kwargs = {"out_kind": kind}
+    if kind == "bitpacked":
+        kwargs["thresholds"] = torch.from_numpy(rng.integers(
+            16 * kw - 40, 16 * kw + 40, n).astype(np.int32)).to(device)
+    elif kind in ("float", "int8"):
+        scale = 4.0 if kind == "int8" else 1.0
+        kwargs.update(
+            multiplier=torch.from_numpy((rng.uniform(-1, 1, n) * scale / kw)
+                                        .astype(np.float32)).to(device),
+            bias=torch.from_numpy(rng.normal(0, 3, n).astype(np.float32))
+            .to(device),
+            clamp_min=-20 * kw + 7, clamp_max=30 * kw - 3)
+    return lhs, rhs, kwargs
+
+
+def gemm_work(m, kw, n, kind):
+    """Bytes and operations of one binary GEMM: packed lhs and rhs read
+    once, the epilogue vectors read once, the output written once;
+    2 * M * N * 32 * KW int8-equivalent operations."""
+    out = 4 * m * -(-n // 32) if kind == "bitpacked" else 4 * m * n
+    vectors = 4 * n if kind == "bitpacked" else 8 * n
+    return 4 * m * kw + 4 * n * kw + vectors + out, 2 * m * n * 32 * kw
+
+
+def max_abs_diff(got, want):
+    return (got.double() - want.double()).abs().max().item()
+
+
 def main():
     import torch
 
@@ -167,11 +235,15 @@ def main():
     import numpy as np
 
     from compute_engine_tpu_torch.core import BConv2DParams, Padding, bitunpack
+    from compute_engine_tpu_torch.interop import layers_from_numpy
     from compute_engine_tpu_torch.kernels import _build
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm, bgemm_plain
     from compute_engine_tpu_torch.kernels.residual import (
         binary_residual_block, binary_residual_block_plain)
-    from compute_engine_tpu_torch.models import (convert_model, get_model,
-                                                 init_model, packed_apply)
+    from compute_engine_tpu_torch.models import (MODELS, convert_model,
+                                                 get_model, init_model,
+                                                 packed_apply,
+                                                 prepare_runtime_arrays)
     from compute_engine_tpu_torch.runtime import Interpreter
     from compute_engine_tpu_torch.runtime.benchmark import benchmark_model
 
@@ -179,7 +251,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
@@ -218,7 +290,34 @@ def main():
             print(f"[compare] residual_block {'x'.join(map(str, shape))} "
                   f"{str(dtype)[6:]} {label}: equal ({TOLERANCE})", flush=True)
 
-    # 3. The main path: QuickNet at batch 128 through the Interpreter.
+    gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0}
+    gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})
+                  for name, m, kw, n, kind in ALEXNET_GEMMS]
+    m, kw, n = RAGGED_GEMM
+    gemm_cases += [(f"ragged {m}x{kw}x{n}", (m, kw, n, kind), {})
+                   for kind in ("accum", "float", "int8", "bitpacked")]
+    gemm_cases.append((f"ragged {m}x{kw}x{n} (KW, N) operand",
+                       (m, kw, n, "accum"), {"n_major": False}))
+    gemm_cases += [(f"split-K {m}x{kw}x{n} block_kw {SPLITK_BLOCK_KW}",
+                    (m, kw, n, kind), {"max_block_kw": SPLITK_BLOCK_KW})
+                   for kind in ("accum", "float", "int8", "bitpacked")]
+    for label, (m, kw, n, kind), opts in gemm_cases:
+        lhs, rhs, kwargs = gemm_case(rng, m, kw, n, kind, dev,
+                                     n_major=opts.get("n_major", True))
+        got = bgemm(lhs, rhs, max_block_kw=opts.get("max_block_kw", 1024),
+                    **kwargs)
+        torch.cuda.synchronize()
+        want = bgemm_plain(lhs, rhs, **kwargs)
+        torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        form = "bgemm_splitk" if "max_block_kw" in opts else "bgemm"
+        gemm_err[form] = max(gemm_err[form], err)
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"bgemm {label} {kind}: kernel != plain (max |diff| {err})")
+        print(f"[compare] bgemm {label} {kind}: equal ({TOLERANCE})",
+              flush=True)
+
+    # 3. The main paths. QuickNet at batch 128 through the Interpreter.
     spec = get_model("quicknet")
     t0 = time.perf_counter()
     layers = convert_model(spec, init_model(spec, seed=0, randomize_bn=True))
@@ -244,6 +343,81 @@ def main():
           f"with the plain path {agree:.4f}, max |dprob| {diff:.3g}",
           flush=True)
     check(agree == 1.0, f"top-1 agreement with the plain path {agree}")
+
+    # BinaryAlexNet at batch 128 in the packed domain.
+    alex = get_model("binary_alexnet")
+    t0 = time.perf_counter()
+    alex_layers = layers_from_numpy(prepare_runtime_arrays(convert_model(
+        alex, init_model(alex, seed=0, randomize_bn=True))), dev)
+    xa = torch.from_numpy(rng.normal(0, 1, (128, *alex.input_size, 3))
+                          .astype(np.float32)).to(dev)
+    print(f"[alexnet] init + convert + load {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    binary_residual_block.launches = 0
+    bgemm.launches = bgemm.splitk_launches = 0
+    probs_a = packed_apply(alex, alex_layers, xa, domain="packed")
+    torch.cuda.synchronize()
+    gemm_launches = bgemm.launches
+    counts = (gemm_launches, bgemm.splitk_launches,
+              binary_residual_block.launches)
+    check(counts == (6, 0, 0), "packed BinaryAlexNet: 6 bgemm launches and "
+          f"no other kernel launch per forward, got {counts}")
+    check(tuple(probs_a.shape) == (128, 1000),
+          f"output shape {tuple(probs_a.shape)}")
+    check(bool(torch.isfinite(probs_a).all()), "non-finite probabilities")
+    check(bool(torch.allclose(probs_a.sum(-1), torch.ones(128, device=dev),
+                              atol=1e-3)), "rows do not sum to 1")
+    plain_a = packed_apply(alex, alex_layers, xa, domain="packed",
+                           gemm=bgemm_plain,
+                           residual_block=binary_residual_block_plain)
+    agree_plain = (probs_a.argmax(-1) == plain_a.argmax(-1)).sum().item()
+    diff_plain = (probs_a - plain_a).abs().max().item()
+    bgemm.launches = 0
+    binary_residual_block.launches = 0
+    float_a = packed_apply(alex, alex_layers, xa, domain="float")
+    torch.cuda.synchronize()
+    float_counts = (bgemm.launches, binary_residual_block.launches)
+    agree_float = (probs_a.argmax(-1) == float_a.argmax(-1)).sum().item()
+    diff_float = (probs_a - float_a).abs().max().item()
+    print(f"[alexnet] packed domain, batch 128: {counts[0]} bgemm launches; "
+          f"top-1 agreement with the plain path {agree_plain}/128 (max "
+          f"|dprob| {diff_plain:.3g}); with the float domain "
+          f"{agree_float}/128 (max |dprob| {diff_float:.3g}; float domain: "
+          f"{float_counts[0]} bgemm and {float_counts[1]} residual block "
+          "launches)", flush=True)
+    check(agree_plain == 128, f"top-1 agreement with the plain path "
+          f"{agree_plain}/128")
+    check(agree_float == 128, f"top-1 agreement with the float domain "
+          f"{agree_float}/128")
+    check(float_counts == (3, 3), "float-domain BinaryAlexNet: 3 bgemm and "
+          f"3 residual block launches, got {float_counts}")
+
+    # Every zoo model runs on the card in the float domain (batch 4): the
+    # residual kernel takes the 3x3 stride-1 one-padded binary convs, bgemm
+    # every other binary conv and every binary dense.
+    for name in MODELS:
+        zspec = get_model(name)
+        zlayers = layers_from_numpy(prepare_runtime_arrays(convert_model(
+            zspec, init_model(zspec, seed=0, randomize_bn=True))), dev)
+        xz = torch.from_numpy(rng.normal(0, 1, (4, *zspec.input_size, 3))
+                              .astype(np.float32)).to(dev)
+        bgemm.launches = 0
+        binary_residual_block.launches = 0
+        pz = packed_apply(zspec, zlayers, xz)
+        torch.cuda.synchronize()
+        zcounts = (bgemm.launches, binary_residual_block.launches)
+        pz_plain = packed_apply(zspec, zlayers, xz, gemm=bgemm_plain,
+                                residual_block=binary_residual_block_plain)
+        zagree = (pz.argmax(-1) == pz_plain.argmax(-1)).sum().item()
+        print(f"[zoo] {name} batch 4, float domain: {zcounts[0]} bgemm and "
+              f"{zcounts[1]} residual block launches, top-1 agreement with "
+              f"the plain path {zagree}/4", flush=True)
+        check(bool(torch.isfinite(pz).all()) and tuple(pz.shape) == (4, 1000),
+              f"{name}: output {tuple(pz.shape)}, finite "
+              f"{bool(torch.isfinite(pz).all())}")
+        check(sum(zcounts) > 0, f"{name}: no kernel launched")
+        check(zagree == 4, f"{name}: top-1 agreement with the plain path "
+              f"{zagree}/4")
 
     # 4. Timing.
     bench = benchmark_model("quicknet", batch=128, iters=10, warmup=3,
@@ -283,6 +457,63 @@ def main():
     def per_forward(key):
         return sum(BLOCKS_PER_SHAPE * s[key] for s in shapes)
 
+    # BinaryAlexNet: the model in both domains, then each GEMM.
+    for domain in ("packed", "float"):
+        b = benchmark_model("binary_alexnet", batch=128, iters=10, warmup=3,
+                            repeats=5, device=dev, domain=domain)
+        print(f"[bench] binary_alexnet b128 bf16 {domain} domain: "
+              f"{b['images_per_sec']:.1f} images/s, p50 "
+              f"{b['latency_ms_p50']:.3f} ms/forward [{card}] "
+              f"{json.dumps(b)}", flush=True)
+    profile_forward(lambda: packed_apply(alex, alex_layers, xa,
+                                         domain="packed"), top=16)
+
+    def time_gemm(m, kw, n, kind, max_block_kw=1024):
+        lhs, rhs, kwargs = gemm_case(rng, m, kw, n, kind, dev)
+        ms = time_ms(lambda: bgemm(lhs, rhs, max_block_kw=max_block_kw,
+                                   **kwargs), reps=20)
+        plain_ms = time_ms(lambda: bgemm_plain(lhs, rhs, **kwargs), reps=3,
+                           warm=1)
+        lib_ms = None
+        if m > 16 and n % 8 == 0:  # the shapes torch._int_mm takes
+            a8 = torch.randint(0, 2, (m, 32 * kw), device=dev,
+                               dtype=torch.int8) * 2 - 1
+            b8 = (torch.randint(0, 2, (n, 32 * kw), device=dev,
+                                dtype=torch.int8) * 2 - 1).t()
+            lib_ms = time_ms(lambda: torch._int_mm(a8, b8), reps=20)
+        nbytes, ops = gemm_work(m, kw, n, kind)
+        bound_ms, bound_by = bound(nbytes, ops)
+        return {"shape": [m, kw, n], "out_kind": kind, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms}
+
+    gemm_shapes = []
+    for name, m, kw, n, kind in ALEXNET_GEMMS:
+        g = time_gemm(m, kw, n, kind)
+        gemm_shapes.append({"layer": name, **g})
+        print(f"[time] bgemm {name} M={m} KW={kw} N={n} {kind}: kernel "
+              f"{g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
+              f"torch._int_mm {g['library_ms']:.4f} ms, bound "
+              f"{g['bound_ms']:.4f} ms ({g['bound_by']}) [{card}]",
+              flush=True)
+    m, kw, n = RAGGED_GEMM
+    lhs, rhs, kwargs = gemm_case(rng, m, kw, n, "float", dev)
+    bgemm.splitk_launches = 0
+    bgemm(lhs, rhs, max_block_kw=SPLITK_BLOCK_KW, **kwargs)
+    torch.cuda.synchronize()
+    splitk_launches = bgemm.splitk_launches
+    check(splitk_launches == 1, f"one split-K launch, got {splitk_launches}")
+    splitk = time_gemm(m, kw, n, "float", max_block_kw=SPLITK_BLOCK_KW)
+    print(f"[time] bgemm split-K M={m} KW={kw} N={n} float, block_kw "
+          f"{SPLITK_BLOCK_KW}: kernel {splitk['ms']:.4f} ms, plain "
+          f"{splitk['plain_ms']:.4f} ms, torch._int_mm not run (it takes "
+          f"N % 8 == 0 only), bound {splitk['bound_ms']:.4f} ms "
+          f"({splitk['bound_by']}) [{card}]", flush=True)
+    gemm_work_all = [gemm_work(m, kw, n, kind)
+                     for _, m, kw, n, kind in ALEXNET_GEMMS]
+    gemm_bound, gemm_bound_by = bound(sum(b for b, _ in gemm_work_all),
+                                      sum(o for _, o in gemm_work_all))
+
     # The line's numbers are per QuickNet forward: 16 launches, 4 per shape.
     work = [block_work(s) for s in QUICKNET_BLOCKS]
     bound_fw, bound_by = bound(
@@ -302,11 +533,43 @@ def main():
         "library_ms": per_forward("library_ms"),
         "per": "one QuickNet batch-128 forward (16 launches)",
         "shapes": shapes,
+    }, {
+        "name": "bgemm",
+        "route": "cuda",
+        "source": "compute_engine_tpu_torch/csrc/bgemm.cu",
+        "replaces": "compute_engine_tpu/kernels/bgemm.py:200",
+        "launches": gemm_launches,
+        "max_abs_err": gemm_err["bgemm"],
+        "ms": sum(g["ms"] for g in gemm_shapes),
+        "plain_ms": sum(g["plain_ms"] for g in gemm_shapes),
+        "bound_ms": gemm_bound,
+        "bound_by": gemm_bound_by,
+        "library_ms": sum(g["library_ms"] for g in gemm_shapes),
+        "per": "one packed-domain BinaryAlexNet batch-128 forward "
+               "(6 launches)",
+        "shapes": gemm_shapes,
+    }, {
+        "name": "bgemm_splitk",
+        "route": "cuda",
+        "source": "compute_engine_tpu_torch/csrc/bgemm.cu",
+        "replaces": "compute_engine_tpu/kernels/bgemm.py:235",
+        "launches": splitk_launches,
+        "max_abs_err": gemm_err["bgemm_splitk"],
+        "ms": splitk["ms"],
+        "plain_ms": splitk["plain_ms"],
+        "bound_ms": splitk["bound_ms"],
+        "bound_by": splitk["bound_by"],
+        "library_ms": splitk["library_ms"],
+        "per": f"one forced split-K call, M={m} KW={kw} N={n} float, "
+               f"block_kw {SPLITK_BLOCK_KW} (no zoo shape reaches split-K; "
+               "torch._int_mm does not take N % 8 != 0)",
+        "shapes": [splitk],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_kind,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

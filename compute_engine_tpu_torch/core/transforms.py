@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bitpack import bitpack
 from .types import Activation, round_half_away, saturate_int8
 
 INT32_MIN = np.int32(np.iinfo(np.int32).min)
@@ -140,3 +141,13 @@ def apply_output_transform_int8(accum: torch.Tensor,
     """Float transform, round half away from zero, saturate to int8."""
     y = apply_output_transform_float(accum, transform)
     return saturate_int8(round_half_away(y).to(torch.int32))
+
+
+def apply_output_transform_bitpacked(accum: torch.Tensor,
+                                     transform: OutputTransform
+                                     ) -> torch.Tensor:
+    """``accum > threshold``, packed LSB-first along the channel axis with
+    padding bits 0 (LCE ``core/bconv2d/output_transform.h:164-167``)."""
+    thr = torch.as_tensor(transform.thresholds, dtype=torch.int32,
+                          device=accum.device)
+    return bitpack(accum > thr)

@@ -51,6 +51,30 @@ def round_half_away(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y >= 0, torch.floor(y + 0.5), torch.ceil(y - 0.5))
 
 
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Number of set bits of each int32 word, as int32.
+
+    torch has no ``bitwise_count``, so this is the SWAR form, taken on the
+    two 16-bit halves of the word: every intermediate stays non-negative
+    and below 2**16, so no signed int32 arithmetic overflows.
+    """
+    x = x.to(torch.int32)
+    total = None
+    for half in (x & 0xFFFF, (x >> 16) & 0xFFFF):
+        v = half - ((half >> 1) & 0x5555)
+        v = (v & 0x3333) + ((v >> 2) & 0x3333)
+        v = (v + (v >> 4)) & 0x0F0F
+        v = (v + (v >> 8)) & 0x1F
+        total = v if total is None else total + v
+    return total
+
+
+def xor_popcount(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Number of bits that differ between packed words ``a`` and ``b``
+    (LCE ``core/types.h:45-48``), as int32."""
+    return popcount(torch.bitwise_xor(a, b))
+
+
 def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 

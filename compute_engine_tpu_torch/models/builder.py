@@ -9,7 +9,8 @@ inference path:
   ConvertBuilder  emits the packed inference artifact (BN folding, sign
                   binarisation, bitpacking) as numpy arrays, identical to the
                   JAX package's
-  PackedBuilder   packed inference forward in the float domain
+  PackedBuilder   packed inference forward, in the float domain or, for
+                  chains of binary layers, in the packed domain
 
 Init and Convert trace shapes on ``torch.device("meta")`` (the counterpart of
 ``jax.eval_shape``): no activation math runs, only the host-side numpy
@@ -33,8 +34,9 @@ from ..core.transforms import (OutputTransform, compute_output_thresholds,
 from ..core.types import Activation, Padding
 from ..device import resolve_device
 from ..interop import layers_from_numpy
-from ..kernels.bconv2d import bconv2d_mxu_float_in
+from ..kernels.bgemm import bgemm
 from ..kernels.residual import binary_residual_block, residual_block_supported
+from ..ops import bconv2d, bmaxpool2d, quantize
 from . import layers as L
 
 __all__ = ["InitBuilder", "ConvertBuilder", "PackedBuilder", "init_model",
@@ -290,13 +292,42 @@ class ConvertBuilder(_Base):
         return L.apply_activation(y, activation)
 
 
+class _BinaryStream:
+    """Lazily materialised output of a binary layer (packed domain).
+
+    LCE decides statically whether a binary op's output is consumed packed
+    (the next op is binary: write bitpacked words through thresholds,
+    ``bitpack_activations_patterns.td:20-60``) or dense. Builders trace
+    forward without lookahead, so the decision is made at the consumer: a
+    binary layer returns this wrapper, and the representation the consumer
+    pulls is the one that runs (memoised, so one consumer runs one conv).
+    """
+
+    def __init__(self, packed_fn, float_fn, channels: int):
+        self._packed_fn, self._float_fn = packed_fn, float_fn
+        self.channels = channels
+        self._packed = self._float = None
+
+    def packed(self):
+        if self._packed is None:
+            self._packed = self._packed_fn()
+        return self._packed
+
+    def to_float(self):
+        if self._float is None:
+            self._float = self._float_fn()
+        return self._float
+
+
 class _DeferredBConv:
     """A float-output binary conv whose execution waits for its consumer.
 
     QuickNet's hot loop is ``x = add(x, binary_conv_bn(x, ...))``. When the
     consumer is that residual add, the whole block runs as one fused kernel
-    call. Any other consumer calls ``materialize()``, which runs the same
-    kernel without its residual add.
+    call. Any other consumer calls ``materialize()``: before the fused add it
+    runs the same kernel without the add; after it, it returns
+    ``fused - x``, as the JAX package does, rather than a second conv that
+    could differ from the fused one by a rounding.
     """
 
     def __init__(self, x, packed_filter, transform, params, block,
@@ -310,8 +341,12 @@ class _DeferredBConv:
 
     def materialize(self):
         if self._value is None:
-            self._value = self._block(self.x, *self._args, has_residual=False,
-                                      unpacked_filter=self._unpacked)
+            if self._fused is not None:
+                self._value = self._fused - self.x.to(self._fused.dtype)
+            else:
+                self._value = self._block(self.x, *self._args,
+                                          has_residual=False,
+                                          unpacked_filter=self._unpacked)
         return self._value
 
     def fuses_with(self, other):
@@ -326,40 +361,78 @@ class _DeferredBConv:
 
 
 class PackedBuilder(_Base):
-    """Packed inference forward over runtime layers, in the float domain.
+    """Packed inference forward over runtime layers.
 
     Float layers take their input in ``compute_dtype``, accumulate in
     float32, and store their output in ``compute_dtype`` (bf16 by default:
-    the activation stream between layers). Every 3x3 stride-1 one-padded
-    binary conv goes through ``residual_block`` (the fused kernel on CUDA
-    tensors, its plain version on CPU tensors), fused with its residual add
-    when that is its consumer. ``return_logits`` makes the final softmax the
-    identity.
+    the activation stream between layers). ``return_logits`` makes the final
+    softmax the identity.
+
+    ``domain="float"``: every 3x3 stride-1 one-padded binary conv goes
+    through ``residual_block``, fused with its residual add when that is its
+    consumer; every other binary conv runs ``quantize`` -> ``bconv2d_bgemm``
+    and every binary dense ``quantize`` -> ``bgemm``, as JAX's
+    ``kernel="bgemm"`` does.
+
+    ``domain="packed"``: binary layers chain through bitpacked activations
+    (convert-time thresholds and sign-flipped filters), pooling and flatten
+    stay packed between them, and non-binary consumers pull the float view.
+    An artifact without thresholds runs in the float domain.
+
+    ``residual_block`` and ``gemm`` pick between kernel and plain version by
+    the tensor's device; the plain versions may be passed to run them on the
+    card for comparison.
     """
 
     def __init__(self, layers, compute_dtype=torch.bfloat16,
-                 return_logits=False, residual_block=binary_residual_block):
+                 return_logits=False, residual_block=binary_residual_block,
+                 gemm=bgemm, domain="float"):
+        if domain not in ("float", "packed"):
+            raise ValueError(f"unknown domain {domain!r}")
         self.layers = layers
         self.compute_dtype = compute_dtype
         self.return_logits = return_logits
         self.residual_block = residual_block
+        self.gemm = gemm
+        self.domain = domain
 
     def _f(self, x):
+        """The float view of a deferred conv or a binary stream."""
         if isinstance(x, _DeferredBConv):
             return x.materialize()
+        if isinstance(x, _BinaryStream):
+            return x.to_float()
         return x
 
     def _store(self, y):
         """Materialise an inter-layer activation in the compute dtype."""
         return y.to(self.compute_dtype)
 
-    def max_pool(self, x, *a, **kw):
-        return super().max_pool(self._f(x), *a, **kw)
+    def max_pool(self, x, pool_size, stride=None, padding="SAME"):
+        if isinstance(x, _BinaryStream):
+            # sign is monotonic, so max commutes with it: pooling the packed
+            # words (bitwise AND) equals sign(float max pool).
+            ps = _pair(pool_size)
+            st = _pair(stride) if stride is not None else ps
+            pad = Padding.SAME if padding == "SAME" else Padding.VALID
+            return _BinaryStream(
+                lambda: bmaxpool2d(x.packed(), ps, st, pad),
+                lambda: super(PackedBuilder, self).max_pool(
+                    x.to_float(), pool_size, stride, padding),
+                x.channels)
+        return super().max_pool(self._f(x), pool_size, stride, padding)
 
     def avg_pool(self, x, *a, **kw):
         return super().avg_pool(self._f(x), *a, **kw)
 
     def flatten(self, x):
+        if isinstance(x, _BinaryStream) and x.channels % 32 == 0:
+            # Exact only when no padding bits would interleave into the
+            # flattened word stream.
+            return _BinaryStream(
+                lambda: x.packed().reshape(x.packed().shape[0], -1),
+                lambda: super(PackedBuilder, self).flatten(x.to_float()),
+                -1)
         return super().flatten(self._f(x))
 
     def global_avg_pool(self, x):
@@ -400,10 +473,16 @@ class PackedBuilder(_Base):
         y = y + a["bias"]
         return self._store(L.apply_activation(y, activation))
 
+    def _packed_in(self, x):
+        """A function giving the packed words of a binary layer's input."""
+        if isinstance(x, _BinaryStream):
+            return x.packed
+        x = self._f(x)
+        return lambda: quantize(x)
+
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
                        pad_value=1, name, groups=1, dilation=1):
         a = self.layers[name]
-        x = self._f(x)
         params = BConv2DParams(
             channels_in=int(a["channels_in"]),
             stride=_pair(stride),
@@ -416,7 +495,21 @@ class PackedBuilder(_Base):
         transform = OutputTransform(
             clamp_min=int(a["clamp_min"]), clamp_max=int(a["clamp_max"]),
             multiplier=a["multiplier"], bias=a["bias"])
-        pf, upf = a["packed_filter"], a.get("filter_pm1")
+        pf = a["packed_filter"]
+        if self.domain == "packed" and "thresholds" in a:
+            packed_in = self._packed_in(x)
+            return _BinaryStream(
+                lambda: bconv2d(
+                    packed_in(), a["packed_filter_flipped"],
+                    OutputTransform(thresholds=a["thresholds"]), params,
+                    output_kind="bitpacked", gemm=self.gemm),
+                lambda: self._store(bconv2d(
+                    packed_in(), pf, transform, params, output_kind="float",
+                    gemm=self.gemm)),
+                filters)
+
+        x = self._f(x)
+        upf = a.get("filter_pm1")
         kh, kw = _pair(ksize)
         if residual_block_supported(x.shape, params, filters, kh, kw,
                                     has_residual=False):
@@ -426,20 +519,25 @@ class PackedBuilder(_Base):
             return self._store(self.residual_block(
                 x, pf, transform, params, has_residual=False,
                 unpacked_filter=upf))
-        if x.device.type == "cuda":
-            raise NotImplementedError(
-                f"binary conv {name!r} ({kh}x{kw}, stride {params.stride}, "
-                f"pad_value {params.pad_value}, groups {params.groups}) has "
-                "no CUDA kernel yet; ROADMAP B.1 (variants of the residual "
-                "block kernel) brings it")
-        return self._store(bconv2d_mxu_float_in(
-            x, pf, transform, params, output_kind="float",
-            unpacked_filter=upf))
+        return self._store(bconv2d(quantize(x), pf, transform, params,
+                                   output_kind="float", gemm=self.gemm))
 
     def binary_dense_bn(self, x, units, *, name):
-        raise NotImplementedError(
-            f"binary dense {name!r} is not ported yet; ROADMAP B.2 (the "
-            "bgemm kernel) brings it")
+        a = self.layers[name]
+        float_out = dict(multiplier=a["multiplier"], bias=a["bias"],
+                         clamp_min=int(a["clamp_min"]),
+                         clamp_max=int(a["clamp_max"]), out_kind="float")
+        if self.domain == "packed" and "thresholds" in a:
+            packed_in = self._packed_in(x)
+            return _BinaryStream(
+                lambda: self.gemm(packed_in(), a["packed_kernel_flipped"].t(),
+                                  thresholds=a["thresholds"],
+                                  out_kind="bitpacked"),
+                lambda: self._store(self.gemm(
+                    packed_in(), a["packed_kernel"].t(), **float_out)),
+                units)
+        lhs = quantize(self._f(x))  # (M, Cp)
+        return self._store(self.gemm(lhs, a["packed_kernel"].t(), **float_out))
 
     def dense(self, x, units, *, use_bias=True, activation=None, name):
         a = self.layers[name]
@@ -503,21 +601,28 @@ def prepare_runtime_arrays(layers):
 
 def packed_apply(spec, layers, x, compute_dtype=torch.bfloat16,
                  return_logits=False, device="cuda",
-                 residual_block=binary_residual_block):
+                 residual_block=binary_residual_block, gemm=bgemm,
+                 domain="float"):
     """Packed inference forward on ``device`` (the card by default).
 
-    ``layers`` are artifact layers (numpy) or runtime layers (tensors);
-    ``residual_block`` may be ``binary_residual_block_plain`` to run the
-    plain versions on the card for comparison.
+    ``layers`` are artifact layers (numpy) or runtime layers (tensors).
+    ``domain="packed"`` chains binary layers through bitpacked activations
+    (see ``PackedBuilder``); a model that ends on a binary layer then returns
+    its packed words. ``residual_block`` and ``gemm`` may be
+    ``binary_residual_block_plain`` and ``bgemm_plain`` to run the plain
+    versions on the card for comparison.
     """
     device = resolve_device(device)
     layers = layers_from_numpy(layers, device)
     x = torch.as_tensor(x).to(device)
     builder = PackedBuilder(layers, compute_dtype=compute_dtype,
                             return_logits=return_logits,
-                            residual_block=residual_block)
+                            residual_block=residual_block, gemm=gemm,
+                            domain=domain)
     with torch.inference_mode():
         out = spec.forward(builder, x)
-        if isinstance(out, _DeferredBConv):
+        if isinstance(out, _BinaryStream):
+            out = out.packed()
+        elif isinstance(out, _DeferredBConv):
             out = out.materialize()
     return out

@@ -7,7 +7,7 @@ median window. There is no CPU fallback: without a card it raises.
 
 Usage:
   python -m compute_engine_tpu_torch.runtime.benchmark --model quicknet \
-      --batch 128 [--iters 20] [--repeats 5] [--f32]
+      --batch 128 [--iters 20] [--repeats 5] [--f32] [--domain packed]
 """
 
 from __future__ import annotations
@@ -27,10 +27,12 @@ from ..models import (convert_model, get_model, init_model, packed_apply,
 
 def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
                     repeats=5, seed=0, compute_dtype=torch.bfloat16,
-                    device="cuda"):
+                    device="cuda", domain="float"):
     """Latency and images/s of ``packed_apply`` at ``batch`` on the card.
 
-    Weights are random from ``seed`` (``init_model(randomize_bn=True)``)."""
+    Weights are random from ``seed`` (``init_model(randomize_bn=True)``).
+    ``domain="packed"`` chains binary layers through bitpacked activations
+    (BinaryAlexNet's conv2-5 and fc1 run bitpacked in and out)."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("benchmark_model times the card; it has no CPU mode")
@@ -43,7 +45,7 @@ def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
 
     def forward():
         return packed_apply(spec, layers, x, compute_dtype=compute_dtype,
-                            device=device)
+                            device=device, domain=domain)
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -68,6 +70,7 @@ def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
         "model": spec.name,
         "batch": batch,
         "compute_dtype": str(compute_dtype).replace("torch.", ""),
+        "domain": domain,
         "device": torch.cuda.get_device_name(device),
         "first_call_s": first_call_s,
         "latency_ms_p50": p50,
@@ -88,11 +91,15 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f32", action="store_true",
                    help="float32 activation stream instead of bfloat16")
+    p.add_argument("--domain", default="float", choices=["float", "packed"],
+                   help="packed: chain binary layers through bitpacked "
+                        "activations")
     args = p.parse_args(argv)
     print(json.dumps(benchmark_model(
         model=args.model, batch=args.batch, iters=args.iters,
         warmup=args.warmup, repeats=args.repeats, seed=args.seed,
-        compute_dtype=torch.float32 if args.f32 else torch.bfloat16)))
+        compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
+        domain=args.domain)))
 
 
 if __name__ == "__main__":

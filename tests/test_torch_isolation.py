@@ -11,6 +11,7 @@ import torch
 from compute_engine_tpu_torch.core import BConv2DParams, Padding
 from compute_engine_tpu_torch.core.transforms import OutputTransform
 from compute_engine_tpu_torch.kernels import _build, residual
+from compute_engine_tpu_torch.kernels import bgemm as bgemm_mod
 from compute_engine_tpu_torch.models import (convert_model, init_model,
                                              packed_apply, tiny_quicknet)
 from compute_engine_tpu_torch.runtime import Interpreter
@@ -39,7 +40,7 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 22
     assert bad.strip() == "[]"
 
 
@@ -106,7 +107,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 def test_build_lists_repo_sources_and_fails_loudly(monkeypatch, tmp_path):
-    assert "residual_block" in _build.sources()
+    assert {"residual_block", "bgemm"} <= set(_build.sources())
     assert _build.BUILD_DIR == os.path.join(REPO, "compute_engine_tpu_torch",
                                             "build")
     with open(os.path.join(REPO, ".gitignore")) as f:
@@ -124,3 +125,43 @@ def test_build_lists_repo_sources_and_fails_loudly(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*no card here"):
         _build.build_all()
     assert os.listdir(tmp_path) == ["failing-nvcc"]
+
+
+def _gemm_args(device):
+    lhs = torch.zeros((3, 2), dtype=torch.int32, device=device)
+    rhs = torch.zeros((2, 5), dtype=torch.int32, device=device)
+    return lhs, rhs
+
+
+def _gemm_counts():
+    return bgemm_mod.bgemm.launches, bgemm_mod.bgemm.splitk_launches
+
+
+@pytest.mark.parametrize("max_block_kw", [1024, 1])
+def test_bgemm_launch_refuses_cpu_tensors(max_block_kw):
+    lhs, rhs = _gemm_args("cpu")
+    before = _gemm_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bgemm_mod._launch(lhs, rhs, None, None, None, 0, 0, "accum",
+                          max_block_kw)
+    assert _gemm_counts() == before
+
+
+@pytest.mark.parametrize("out_kind", ["accum", "bitpacked"])
+def test_bgemm_cpu_tensors_take_the_plain_version_without_counting(out_kind):
+    lhs, rhs = _gemm_args("cpu")
+    thr = np.zeros(5, np.int32)
+    before = _gemm_counts()
+    for max_block_kw in (1024, 1):  # one pass or split-K on the card
+        got = bgemm_mod.bgemm(lhs, rhs, thresholds=thr, out_kind=out_kind,
+                              max_block_kw=max_block_kw)
+        want = bgemm_mod.bgemm_plain(lhs, rhs, thresholds=thr,
+                                     out_kind=out_kind)
+        assert torch.equal(got, want)
+    assert _gemm_counts() == before
+
+
+def test_bgemm_has_no_fallback_for_other_devices():
+    lhs, rhs = _gemm_args("meta")
+    with pytest.raises(ValueError, match="no bgemm kernel"):
+        bgemm_mod.bgemm(lhs, rhs, out_kind="accum")

@@ -146,9 +146,14 @@ def test_binary_dense_converts_like_jax():
     got = prepare_runtime_arrays(convert_model(
         spec, init_model(spec, seed=1, randomize_bn=True)))
     _assert_layers_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        packed_apply(spec, got, np.zeros((1, 16, 16, 3), np.float32),
-                     device="cpu")
+    # The binary dense runs (quantize -> bgemm) and matches JAX's forward.
+    x = np.random.default_rng(1).normal(0, 1, (2, 16, 16, 3)).astype(
+        np.float32)
+    want_y = np.asarray(japply(jspec, want, jnp.asarray(x), kernel="mxu",
+                               compute_dtype=jnp.float32))
+    got_y = packed_apply(spec, got, x, compute_dtype=torch.float32,
+                         device="cpu").numpy()
+    np.testing.assert_allclose(got_y, want_y, atol=1e-3)
 
 
 def test_jax_artifact_loads_in_port(tmp_path, jax_model, rng):
