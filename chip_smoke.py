@@ -11,13 +11,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Build every CUDA source of the port with nvcc, in parallel.
 2. Hold each kernel against its plain PyTorch version on the card,
    ``torch.equal``:
-   - the residual block at the shapes QuickNet gives it at batch 128 and at
-     a ragged channel count, with an identity transform, with a random
-     transform, and without the residual add;
+   - the residual block at the shapes QuickNet gives it at batch 128 (the
+     7x7 one has blocks that cross image borders), at a ragged channel count
+     and at one that is not a multiple of 8 in bfloat16 and float32, with an
+     identity transform, with a random transform, and without the residual
+     add; and without the add at the shapes of BinaryAlexNet's float-domain
+     conv3 and conv5 (256 -> 384 and 384 -> 256 channels);
    - the binary GEMM at the six shapes BinaryAlexNet gives it at batch 128,
-     with their output kinds; at a ragged shape in all four output kinds
-     with a random transform and random thresholds; and in its split-K form,
-     forced at a ragged K.
+     with their output kinds; at KW = 3, at M < 64 and at N = 1000; at a
+     ragged shape in all four output kinds with a random transform and
+     random thresholds, also with operands that are not 16-byte aligned; and
+     in its split-K form, forced at a ragged K.
+   ``--compare-only`` stops here. ``--sweep-residual`` times the residual
+   block at every block size (warps, channel tiles per block) it can be
+   launched with, at the QuickNet shapes, and stops: the choice in
+   ``kernels/residual.py::_choose_blocks`` rests on it.
+   ``--kernel-times`` skips this phase, times both kernels at the main-path
+   shapes as phase 4 does, and stops; with ``--root DIR`` it takes the
+   package from another checkout, so that two commits are timed on one
+   clock, one after the other (the ``*_MS_BEFORE`` constants below were).
 3. Drive the main paths, each with the launch counts set to 0 just before
    and read just after, with random weights from seed 0:
    - QuickNet (224x224x3, sections 64/128/256/512, 4+4+4+4 blocks, 1000
@@ -32,10 +44,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batch 4 in the float domain, against the plain versions.
 4. Time ``benchmark_model`` (images/s) for both models (BinaryAlexNet in both
    domains), print a torch.profiler breakdown of each forward's device time
-   by kernel, and time each kernel at each main-path shape beside its bound,
-   its plain version and a library yardstick, timed only: cuDNN's bf16 conv
-   of pre-signed +-1 inputs for the block, ``torch._int_mm`` (cuBLAS int8)
-   of the unpacked +-1 operands for the GEMM.
+   by kernel, measure the rate of the int8 and the one-bit tensor-core MMA
+   (``csrc/mma_rate.cu``), and time each kernel at each main-path shape
+   beside its bound, its plain version and a library yardstick, timed only:
+   cuDNN's bf16 conv of pre-signed +-1 inputs for the block (and a copy of
+   the activation, which moves the same bytes), ``torch._int_mm`` (cuBLAS
+   int8) of the unpacked +-1 operands for the GEMM. All of these but the
+   GEMM's plain version are timed by replaying a CUDA graph of the calls,
+   so that none is timed by how fast the host enqueues it. The ``[time]`` lines also hold each kernel
+   against its time before the tensor-core redesign (a constant, with its
+   card), and the run fails if a main-path shape is slower than that.
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -51,12 +69,26 @@ import sys
 import time
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 tensor-core ops/s.
+# The data sheet gives no one-bit rate. The one-bit MMA covers eight times
+# the K of the int8 one and issues at the same rate (phase 4 measures both,
+# the ``[mma]`` lines), so the peak for one-bit operands is eight times the
+# int8 peak; the kernels' operations are held against that.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
+PEAK_ONE_BIT_OPS_PER_S = 8 * PEAK_INT8_OPS_PER_S
 
 QUICKNET_BLOCKS = [(128, 56, 56, 64), (128, 28, 28, 128), (128, 14, 14, 256),
                    (128, 7, 7, 512)]
+# Times (ms) of the xor-popcount kernels on the CUDA cores that these kernels
+# replaced: ``--kernel-times --root`` on a checkout of the commit before the
+# redesign, by CUDA-graph replay like the times they are held against.
+BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+BLOCK_MS_BEFORE = {56: 0.4771, 28: 0.3613, 14: 0.3062, 7: 0.3197}
+GEMM_MS_BEFORE = {"conv2": 0.6032, "conv3": 0.2183, "conv4": 0.2892,
+                  "conv5": 0.2017, "fc1": 0.0537, "fc2": 0.0253}
+SPLITK_MS_BEFORE = 0.0102
 RAGGED = (4, 9, 9, 48)
+ODD = (3, 6, 5, 20)  # channels not a multiple of 8: no 16-byte access
 BLOCKS_PER_SHAPE = 4  # QuickNet: 4 blocks in each of the four sections
 TOLERANCE = "torch.equal (bit for bit)"
 
@@ -70,7 +102,18 @@ ALEXNET_GEMMS = [
     ("fc1", 128, 288, 4096, "bitpacked"),
     ("fc2", 128, 128, 4096, "float"),
 ]
+ALEXNET_FLOAT_CONVS = [((128, 13, 13, 256), 384), ((128, 13, 13, 384), 256)]
 RAGGED_GEMM = (1000, 77, 100)
+# (label, M, KW, N, output kind): a 1x1 conv of 96 channels (KW = 3), fewer
+# rows than a tile, and N = 1000 (not a multiple of the 64-column tile).
+EDGE_GEMMS = [
+    ("1x1 conv of 96 channels", 128 * 13 * 13, 3, 256, "float"),
+    ("1x1 conv of 96 channels", 128 * 13 * 13, 3, 256, "bitpacked"),
+    ("M < 64", 40, 77, 100, "int8"),
+    ("M < 64", 40, 72, 96, "bitpacked"),
+    ("N = 1000", 128, 128, 1000, "float"),
+    ("N = 1000", 3000, 75, 1000, "bitpacked"),
+]
 SPLITK_BLOCK_KW = 32  # forces 3 blocks of K at KW = 77, the last ragged
 
 
@@ -86,17 +129,32 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps, warm=2):
+def time_ms(fn, reps, warm=2, graph=True):
+    """Milliseconds per call of ``fn`` on the card, by CUDA events around
+    ``reps`` calls. The calls are captured into one CUDA graph first and its
+    replay is timed, so that a kernel of a few microseconds is not timed by
+    how fast the host can enqueue it; ``graph=False`` times eager calls."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        run = captured.replay
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -132,25 +190,27 @@ def profile_forward(forward, n=3, top=12):
         print(f"[profile] {ms:8.4f} ms {count:5.1f}x {name[:100]}")
 
 
-def block_case(rng, shape, device, dtype, identity):
+def block_case(rng, shape, device, dtype, identity, c_out=None):
     """Inputs of one residual block: x (with exact +0.0 and -0.0 entries),
-    the packed +-1 filter and a fused transform."""
+    the packed +-1 filter (``c_out`` output channels, as many as input
+    channels by default) and a fused transform."""
     import numpy as np
     import torch
 
     from compute_engine_tpu_torch.core import bitpack_np, fuse_output_transform
 
     n, h, w, c = shape
+    co = c if c_out is None else c_out
     x = rng.normal(0, 1, shape).astype(np.float32)
     x.reshape(-1)[::97] = 0.0
     x.reshape(-1)[1::89] = -0.0
-    filt = rng.choice([-1.0, 1.0], size=(c, 3, 3, c)).astype(np.float32)
+    filt = rng.choice([-1.0, 1.0], size=(co, 3, 3, c)).astype(np.float32)
     if identity:
-        post_mul, post_bias = np.ones(c), np.zeros(c)
+        post_mul, post_bias = np.ones(co), np.zeros(co)
     else:
-        post_mul = (rng.uniform(0.1, 2.0, c)
-                    * rng.choice([-1.0, 1.0], c)).astype(np.float32)
-        post_bias = rng.uniform(-5, 5, c).astype(np.float32)
+        post_mul = (rng.uniform(0.1, 2.0, co)
+                    * rng.choice([-1.0, 1.0], co)).astype(np.float32)
+        post_bias = rng.uniform(-5, 5, co).astype(np.float32)
     tr = fuse_output_transform(post_mul, post_bias, 9 * c)
     tr = type(tr)(clamp_min=tr.clamp_min, clamp_max=tr.clamp_max,
                   multiplier=torch.from_numpy(tr.multiplier).to(device),
@@ -162,8 +222,8 @@ def block_case(rng, shape, device, dtype, identity):
 
 def block_work(shape):
     """Bytes and operations of one block: bf16 x read and out written once,
-    filter words and transform read once; 2 * 9 * C int8-equivalent
-    operations per output."""
+    filter words and transform read once; 2 * 9 * C one-bit operations per
+    output."""
     n, h, w, c = shape
     nbytes = 2 * n * h * w * c * 2 + c * 9 * (-(-c // 32)) * 4 + 2 * c * 4
     return nbytes, 2 * n * h * w * c * 9 * c
@@ -171,9 +231,9 @@ def block_work(shape):
 
 def bound(nbytes, ops):
     """Least time (ms) for the work and what sets it, against the H100's
-    memory rate and int8 tensor-core rate."""
+    memory rate and its tensor-core rate for one-bit operands."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
+    t_ops = ops / PEAK_ONE_BIT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -209,10 +269,136 @@ def gemm_case(rng, m, kw, n, kind, device, n_major=True):
 def gemm_work(m, kw, n, kind):
     """Bytes and operations of one binary GEMM: packed lhs and rhs read
     once, the epilogue vectors read once, the output written once;
-    2 * M * N * 32 * KW int8-equivalent operations."""
+    2 * M * N * 32 * KW one-bit operations."""
     out = 4 * m * -(-n // 32) if kind == "bitpacked" else 4 * m * n
     vectors = 4 * n if kind == "bitpacked" else 8 * n
     return 4 * m * kw + 4 * n * kw + vectors + out, 2 * m * n * 32 * kw
+
+
+def sweep_residual(rng, device, card):
+    """Time the residual block at each QuickNet shape with every number of
+    warps and of channel tiles per block, each held against the plain
+    version, and print which ``plan_residual_block`` chooses."""
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.kernels import residual
+
+    choose = residual.plan_residual_block
+    for shape in QUICKNET_BLOCKS + [(128, 7, 7, 64)]:
+        c = shape[-1]
+        p = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
+        x, pf, tr = block_case(rng, shape, device, torch.bfloat16, False)
+        want = residual.binary_residual_block_plain(x, pf, tr, p)
+        chosen = choose(*shape, c)
+        for warps in (8, 4, 2):
+            for tiles in (1, 2, 4, 8):
+                if tiles > -(-c // 64):
+                    continue
+
+                def run(block=(warps, tiles)):
+                    return residual._launch(x, pf, tr, True, block=block)
+
+                check(torch.equal(run(), want), f"sweep {shape} {warps} "
+                      f"warps, {tiles} tiles: kernel != plain")
+                ms = time_ms(run, reps=50)
+                mark = (" <- chosen" if (warps, tiles) == (
+                    chosen["warps"], chosen["tiles_per_block"]) else "")
+                print(f"[sweep] residual_block {'x'.join(map(str, shape))} "
+                      f"bf16, {warps} warps, {tiles} channel tile(s) per "
+                      f"block, {choose(*shape, c, 2, warps, tiles)['blocks']}"
+                      f" blocks: {ms:.4f} ms [{card}]{mark}", flush=True)
+
+
+def time_block(rng, shape, device, yardsticks=True):
+    """Times of the residual block at one bf16 shape, all by CUDA-graph
+    replay: the kernel and, with ``yardsticks``, its plain version, cuDNN's
+    bf16 conv of pre-signed inputs and a copy of the activation; and its
+    bound."""
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding, bitunpack
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+
+    c = shape[-1]
+    p = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
+    x, pf, tr = block_case(rng, shape, device, torch.bfloat16, False)
+    bound_ms, bound_by = bound(*block_work(shape))
+    times = {"shape": list(shape),
+             "ms": time_ms(lambda: binary_residual_block(x, pf, tr, p),
+                           reps=50),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+    if not yardsticks:
+        return times
+    # The plain version gets the filter unpacked once, as on the main path
+    # (prepare_runtime_arrays).
+    upf = bitunpack(pf, c, dtype=torch.int8).permute(1, 2, 3, 0)
+    times["plain_ms"] = time_ms(
+        lambda: binary_residual_block_plain(x, pf, tr, p,
+                                            unpacked_filter=upf),
+        reps=3, warm=1)
+    xs = torch.where(x < 0, -1.0, 1.0).to(torch.bfloat16)
+    xs = xs.permute(0, 3, 1, 2)  # channels_last NCHW view
+    ws = torch.from_numpy(rng.choice([-1.0, 1.0], size=(c, c, 3, 3))).to(
+        device, torch.bfloat16)
+    times["library_ms"] = time_ms(
+        lambda: torch.nn.functional.conv2d(xs, ws, padding=1), reps=50)
+    times["copy_ms"] = time_ms(lambda: x.clone(), reps=50)
+    return times
+
+
+def time_gemm(rng, m, kw, n, kind, device, max_block_kw=1024,
+              yardsticks=True):
+    """Times of the binary GEMM at one shape: the kernel by CUDA-graph
+    replay and by eager calls (``ms_enqueued_from_python``, which the host's
+    enqueue rate sets for the short shapes) and, with ``yardsticks``,
+    ``torch._int_mm`` of unpacked +-1 int8 operands by graph replay and the
+    plain version by eager calls (it copies a scalar from the host, which a
+    capture refuses; it takes 0.7 ms and more in a dozen launches, so the
+    host does not set its time); and its bound."""
+    import torch
+
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm, bgemm_plain
+
+    lhs, rhs, kwargs = gemm_case(rng, m, kw, n, kind, device)
+
+    def run():
+        return bgemm(lhs, rhs, max_block_kw=max_block_kw, **kwargs)
+
+    bound_ms, bound_by = bound(*gemm_work(m, kw, n, kind))
+    times = {"shape": [m, kw, n], "out_kind": kind,
+             "ms": time_ms(run, reps=20),
+             "ms_enqueued_from_python": time_ms(run, reps=20, graph=False),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+    if not yardsticks:
+        return times
+    times["plain_ms"] = time_ms(lambda: bgemm_plain(lhs, rhs, **kwargs),
+                                reps=3, warm=1, graph=False)
+    times["library_ms"] = None
+    if m > 16 and n % 8 == 0:  # the shapes torch._int_mm takes
+        a8 = torch.randint(0, 2, (m, 32 * kw), device=device,
+                           dtype=torch.int8) * 2 - 1
+        b8 = (torch.randint(0, 2, (n, 32 * kw), device=device,
+                            dtype=torch.int8) * 2 - 1).t()
+        times["library_ms"] = time_ms(lambda: torch._int_mm(a8, b8), reps=20)
+    return times
+
+
+def kernel_times(rng, device, card):
+    """The kernels alone at the main-path shapes, without yardsticks."""
+    for shape in QUICKNET_BLOCKS:
+        t = time_block(rng, shape, device, yardsticks=False)
+        print(f"[kernel-times] residual_block {'x'.join(map(str, shape))} "
+              f"bf16: {t['ms']:.4f} ms [{card}]", flush=True)
+    m, kw, n = RAGGED_GEMM
+    for name, m, kw, n, kind, block_kw in (
+            [g + (1024,) for g in ALEXNET_GEMMS]
+            + [("split-K", m, kw, n, "float", SPLITK_BLOCK_KW)]):
+        t = time_gemm(rng, m, kw, n, kind, device, block_kw, yardsticks=False)
+        print(f"[kernel-times] bgemm {name} M={m} KW={kw} N={n} {kind}: "
+              f"{t['ms']:.4f} ms; enqueued from Python "
+              f"{t['ms_enqueued_from_python']:.4f} ms [{card}]", flush=True)
 
 
 def max_abs_diff(got, want):
@@ -225,7 +411,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    args = sys.argv[1:]
+    root = os.path.dirname(os.path.abspath(__file__))
+    if "--root" in args:  # the package of another checkout
+        root = os.path.abspath(args[args.index("--root") + 1])
+    sys.path.insert(0, root)
     try:
         import compute_engine_tpu_torch  # noqa: F401
     except ImportError:
@@ -234,7 +424,7 @@ def main():
         return 1
     import numpy as np
 
-    from compute_engine_tpu_torch.core import BConv2DParams, Padding, bitunpack
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
     from compute_engine_tpu_torch.interop import layers_from_numpy
     from compute_engine_tpu_torch.kernels import _build
     from compute_engine_tpu_torch.kernels.bgemm import bgemm, bgemm_plain
@@ -252,8 +442,8 @@ def main():
     dev = torch.device("cuda")
     card = card_line()
     device_kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
-          flush=True)
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}"
+          f"; package from {os.path.relpath(root)}", flush=True)
 
     # 1. Build.
     t0 = time.perf_counter()
@@ -265,11 +455,16 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    # 2. Kernel against its plain version.
     rng = np.random.default_rng(0)
+    if "--kernel-times" in args:
+        kernel_times(rng, dev, card)
+        return 0
+
+    # 2. Kernel against its plain version.
     max_err = 0.0
     cases = [(s, torch.bfloat16) for s in QUICKNET_BLOCKS + [RAGGED]]
-    cases.append((RAGGED, torch.float32))
+    cases += [(RAGGED, torch.float32), (ODD, torch.bfloat16),
+              (ODD, torch.float32)]
     for shape, dtype in cases:
         p = BConv2DParams(channels_in=shape[-1], padding=Padding.SAME,
                           pad_value=1)
@@ -289,21 +484,49 @@ def main():
                   f"(max |diff| {err})")
             print(f"[compare] residual_block {'x'.join(map(str, shape))} "
                   f"{str(dtype)[6:]} {label}: equal ({TOLERANCE})", flush=True)
+    # Without the add the channel counts may differ: BinaryAlexNet's
+    # float-domain conv3 and conv5 at batch 128.
+    for shape, c_out in ALEXNET_FLOAT_CONVS:
+        p = BConv2DParams(channels_in=shape[-1], padding=Padding.SAME,
+                          pad_value=1)
+        x, pf, tr = block_case(rng, shape, dev, torch.bfloat16, False, c_out)
+        got = binary_residual_block(x, pf, tr, p, has_residual=False)
+        torch.cuda.synchronize()
+        want = binary_residual_block_plain(x, pf, tr, p, has_residual=False)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        check(torch.equal(got, want),
+              f"residual_block {shape} -> {c_out} no-residual: kernel != "
+              f"plain (max |diff| {err})")
+        print(f"[compare] residual_block {'x'.join(map(str, shape))} -> "
+              f"{c_out} channels bfloat16 no-residual: equal ({TOLERANCE})",
+              flush=True)
 
     gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0}
     gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})
                   for name, m, kw, n, kind in ALEXNET_GEMMS]
+    gemm_cases += [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})
+                   for name, m, kw, n, kind in EDGE_GEMMS]
     m, kw, n = RAGGED_GEMM
     gemm_cases += [(f"ragged {m}x{kw}x{n}", (m, kw, n, kind), {})
                    for kind in ("accum", "float", "int8", "bitpacked")]
     gemm_cases.append((f"ragged {m}x{kw}x{n} (KW, N) operand",
                        (m, kw, n, "accum"), {"n_major": False}))
+    gemm_cases.append((f"ragged {m}x{kw}x{n} unaligned operands",
+                       (m, kw, n, "float"), {"unaligned": True}))
     gemm_cases += [(f"split-K {m}x{kw}x{n} block_kw {SPLITK_BLOCK_KW}",
                     (m, kw, n, kind), {"max_block_kw": SPLITK_BLOCK_KW})
                    for kind in ("accum", "float", "int8", "bitpacked")]
     for label, (m, kw, n, kind), opts in gemm_cases:
         lhs, rhs, kwargs = gemm_case(rng, m, kw, n, kind, dev,
                                      n_major=opts.get("n_major", True))
+        if opts.get("unaligned"):  # one word into a larger allocation
+            lhs = torch.cat([lhs.new_zeros(1), lhs.reshape(-1)])[1:].view(m, kw)
+            rhs = torch.cat([rhs.new_zeros(1), rhs.t().reshape(-1)])[1:].view(
+                n, kw).t()
+            check(lhs.data_ptr() % 16 and rhs.data_ptr() % 16,
+                  "the operands should not be 16-byte aligned")
         got = bgemm(lhs, rhs, max_block_kw=opts.get("max_block_kw", 1024),
                     **kwargs)
         torch.cuda.synchronize()
@@ -316,6 +539,13 @@ def main():
               f"bgemm {label} {kind}: kernel != plain (max |diff| {err})")
         print(f"[compare] bgemm {label} {kind}: equal ({TOLERANCE})",
               flush=True)
+
+    if "--sweep-residual" in args:
+        sweep_residual(rng, dev, card)
+        return 0
+    if "--compare-only" in args:
+        print("chip_smoke: --compare-only, stopping after phase 2")
+        return 0
 
     # 3. The main paths. QuickNet at batch 128 through the Interpreter.
     spec = get_model("quicknet")
@@ -427,32 +657,37 @@ def main():
           f"{json.dumps(bench)}", flush=True)
     x_dev = torch.from_numpy(x).to(dev)
     profile_forward(lambda: packed_apply(spec, interp.layers, x_dev))
+    # The tensor cores' rate at a binary dot product (binary multiply-adds
+    # per second; the H100's data sheet gives none for one bit).
+    from compute_engine_tpu_torch.kernels.mma_rate import KINDS as MMA_KINDS
+    from compute_engine_tpu_torch.kernels.mma_rate import mma_rate
+
+    mma_rates = {}
+    for kind in MMA_KINDS:
+        mma_rates[kind] = max(mma_rate(kind, iters=4000) for _ in range(2))
+        print(f"[mma] {kind}: {mma_rates[kind]:.4g} binary multiply-adds/s "
+              f"[{card}]", flush=True)
+    int8_rate, one_bit_rate = list(mma_rates.values())[:2]
+    print(f"[mma] the one-bit MMA does {one_bit_rate / int8_rate:.2f} times "
+          "the binary multiply-adds of the int8 one (the bound takes 8 times "
+          f"the int8 peak, {PEAK_ONE_BIT_OPS_PER_S / 2:.4g} multiply-adds/s)",
+          flush=True)
+    check(one_bit_rate > 6 * int8_rate, "the one-bit MMA should issue at "
+          "about the int8 MMA's rate, which the bound's peak assumes")
     shapes = []
     for shape in QUICKNET_BLOCKS:
         n, h, w, c = shape
-        p = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
-        x, pf, tr = block_case(rng, shape, dev, torch.bfloat16, False)
-        # The plain version gets the filter unpacked once, as on the main
-        # path (prepare_runtime_arrays).
-        upf = bitunpack(pf, c, dtype=torch.int8).permute(1, 2, 3, 0)
-        ms = time_ms(lambda: binary_residual_block(x, pf, tr, p), reps=50)
-        plain_ms = time_ms(
-            lambda: binary_residual_block_plain(x, pf, tr, p,
-                                                unpacked_filter=upf),
-            reps=5, warm=1)
-        xs = torch.where(x < 0, -1.0, 1.0).to(torch.bfloat16)
-        xs = xs.permute(0, 3, 1, 2)  # channels_last NCHW view
-        ws = torch.from_numpy(rng.choice([-1.0, 1.0], size=(c, c, 3, 3))).to(
-            dev, torch.bfloat16)
-        lib_ms = time_ms(
-            lambda: torch.nn.functional.conv2d(xs, ws, padding=1), reps=50)
-        bound_ms, bound_by = bound(*block_work(shape))
-        shapes.append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": lib_ms})
-        print(f"[time] residual_block {n}x{h}x{w}x{c} bf16: kernel {ms:.4f} ms,"
-              f" plain {plain_ms:.4f} ms, cuDNN bf16 conv {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+        t = time_block(rng, shape, dev)
+        shapes.append(t)
+        before = BLOCK_MS_BEFORE[h]
+        print(f"[time] residual_block {n}x{h}x{w}x{c} bf16: kernel "
+              f"{t['ms']:.4f} ms (before {before:.4f} ms [{BEFORE_CARD}]), "
+              f"plain {t['plain_ms']:.4f} ms, cuDNN bf16 conv "
+              f"{t['library_ms']:.4f} ms, a copy of the activation "
+              f"{t['copy_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}) [{card}]", flush=True)
+        check(t["ms"] <= before, f"residual_block {shape}: {t['ms']:.4f} ms "
+              f"is slower than the kernel it replaced ({before:.4f} ms)")
 
     def per_forward(key):
         return sum(BLOCKS_PER_SHAPE * s[key] for s in shapes)
@@ -468,34 +703,18 @@ def main():
     profile_forward(lambda: packed_apply(alex, alex_layers, xa,
                                          domain="packed"), top=16)
 
-    def time_gemm(m, kw, n, kind, max_block_kw=1024):
-        lhs, rhs, kwargs = gemm_case(rng, m, kw, n, kind, dev)
-        ms = time_ms(lambda: bgemm(lhs, rhs, max_block_kw=max_block_kw,
-                                   **kwargs), reps=20)
-        plain_ms = time_ms(lambda: bgemm_plain(lhs, rhs, **kwargs), reps=3,
-                           warm=1)
-        lib_ms = None
-        if m > 16 and n % 8 == 0:  # the shapes torch._int_mm takes
-            a8 = torch.randint(0, 2, (m, 32 * kw), device=dev,
-                               dtype=torch.int8) * 2 - 1
-            b8 = (torch.randint(0, 2, (n, 32 * kw), device=dev,
-                                dtype=torch.int8) * 2 - 1).t()
-            lib_ms = time_ms(lambda: torch._int_mm(a8, b8), reps=20)
-        nbytes, ops = gemm_work(m, kw, n, kind)
-        bound_ms, bound_by = bound(nbytes, ops)
-        return {"shape": [m, kw, n], "out_kind": kind, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms}
-
     gemm_shapes = []
     for name, m, kw, n, kind in ALEXNET_GEMMS:
-        g = time_gemm(m, kw, n, kind)
+        g = time_gemm(rng, m, kw, n, kind, dev)
         gemm_shapes.append({"layer": name, **g})
+        before = GEMM_MS_BEFORE[name]
+        check(g["ms"] <= before, f"bgemm {name}: {g['ms']:.4f} ms is slower "
+              f"than the kernel it replaced ({before:.4f} ms)")
         print(f"[time] bgemm {name} M={m} KW={kw} N={n} {kind}: kernel "
-              f"{g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
-              f"torch._int_mm {g['library_ms']:.4f} ms, bound "
-              f"{g['bound_ms']:.4f} ms ({g['bound_by']}) [{card}]",
-              flush=True)
+              f"{g['ms']:.4f} ms (before {before:.4f} ms [{BEFORE_CARD}]), "
+              f"plain {g['plain_ms']:.4f} ms, torch._int_mm "
+              f"{g['library_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms "
+              f"({g['bound_by']}) [{card}]", flush=True)
     m, kw, n = RAGGED_GEMM
     lhs, rhs, kwargs = gemm_case(rng, m, kw, n, "float", dev)
     bgemm.splitk_launches = 0
@@ -503,22 +722,27 @@ def main():
     torch.cuda.synchronize()
     splitk_launches = bgemm.splitk_launches
     check(splitk_launches == 1, f"one split-K launch, got {splitk_launches}")
-    splitk = time_gemm(m, kw, n, "float", max_block_kw=SPLITK_BLOCK_KW)
+    splitk = time_gemm(rng, m, kw, n, "float", dev,
+                       max_block_kw=SPLITK_BLOCK_KW)
     print(f"[time] bgemm split-K M={m} KW={kw} N={n} float, block_kw "
-          f"{SPLITK_BLOCK_KW}: kernel {splitk['ms']:.4f} ms, plain "
+          f"{SPLITK_BLOCK_KW}: kernel {splitk['ms']:.4f} ms (before "
+          f"{SPLITK_MS_BEFORE:.4f} ms [{BEFORE_CARD}]), plain "
           f"{splitk['plain_ms']:.4f} ms, torch._int_mm not run (it takes "
           f"N % 8 == 0 only), bound {splitk['bound_ms']:.4f} ms "
           f"({splitk['bound_by']}) [{card}]", flush=True)
-    gemm_work_all = [gemm_work(m, kw, n, kind)
-                     for _, m, kw, n, kind in ALEXNET_GEMMS]
-    gemm_bound, gemm_bound_by = bound(sum(b for b, _ in gemm_work_all),
-                                      sum(o for _, o in gemm_work_all))
 
+    def bound_of_launches(items, weight=1):
+        """Launches do not overlap, so the bound of a forward is the sum of
+        its launches' bounds; it is named after the side that sets more of
+        it."""
+        by = {"bytes": 0.0, "operations": 0.0}
+        for item in items:
+            by[item["bound_by"]] += weight * item["bound_ms"]
+        return sum(by.values()), max(by, key=by.get)
+
+    gemm_bound, gemm_bound_by = bound_of_launches(gemm_shapes)
     # The line's numbers are per QuickNet forward: 16 launches, 4 per shape.
-    work = [block_work(s) for s in QUICKNET_BLOCKS]
-    bound_fw, bound_by = bound(
-        BLOCKS_PER_SHAPE * sum(b for b, _ in work),
-        BLOCKS_PER_SHAPE * sum(o for _, o in work))
+    bound_fw, bound_by = bound_of_launches(shapes, BLOCKS_PER_SHAPE)
     kernels = [{
         "name": "residual_block",
         "route": "cuda",
@@ -565,6 +789,7 @@ def main():
                "torch._int_mm does not take N % 8 != 0)",
         "shapes": [splitk],
     }]
+    print(json.dumps({"mma_rates": mma_rates}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so`` under the package
 (a directory the repository's ``.gitignore`` lists) with a plain C interface,
-loaded with ``ctypes``. The hash covers the source and the flags, so an edit
-rebuilds. ``build_all`` starts one ``nvcc`` per source, all at once. Only the
-sources in this package are compiled; a failed build raises.
+loaded with ``ctypes``. The hash covers the source, every header under
+``csrc/`` that a source can include (``*.cuh``, ``*.h``) and the flags, so an
+edit to any of them rebuilds. ``build_all`` starts one ``nvcc`` per source,
+all at once. Only the sources in this package are compiled; a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -44,10 +46,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def headers() -> list[str]:
+    """Names of the headers under ``csrc/`` that a source may include."""
+    return sorted(f for f in os.listdir(CSRC) if f.endswith((".cuh", ".h")))
+
+
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *(os.path.join(CSRC, h) for h in headers())]:
+        with open(path, "rb") as f:
+            digest.update(b"\0" + os.path.basename(path).encode() + b"\0"
+                          + f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -3,9 +3,12 @@
 ``bgemm`` is the port of the Pallas kernels
 ``compute_engine_tpu.kernels.bgemm._bgemm_kernel`` and, for deep K,
 ``_bgemm_kernel_bigk``: on CUDA tensors it launches the hand-written kernel
-in ``csrc/bgemm.cu`` (xor + popcount, one pass over K, or split-K with a
-reduction pass when KW exceeds ``max_block_kw``); on CPU tensors it runs
-``bgemm_plain``, the plain PyTorch version of the same function.
+in ``csrc/bgemm.cu`` (single-bit ``mma.sync`` on the tensor cores, AND +
+popcount, with ``popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b)``; one pass
+over K, or split-K with a reduction pass when KW exceeds ``max_block_kw``);
+on CPU tensors it runs ``bgemm_plain``, the plain PyTorch version of the same
+function. ``plan_bgemm`` is the launch plan (tile, grid, shared memory) in
+Python, where the CPU tests can check it; every shape takes this kernel.
 
 Contract (that of the JAX ``bgemm``):
 
@@ -21,7 +24,7 @@ Contract (that of the JAX ``bgemm``):
            "bitpacked"  int32 words (M, ceil(N/32)): bit n set where
                         accum > thresholds[n], LSB first, padding bits 0
 
-Channel-padding bits are 0 in both operands and add nothing to the popcount.
+Channel-padding bits are 0 in both operands and add nothing to any popcount.
 The float epilogue rounds the product and the sum separately (no FMA), so
 the kernel equals the plain version bit for bit.
 """
@@ -29,13 +32,17 @@ the kernel equals the plain version bit for bit.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ..core.bitpack import bitpack, bitunpack
 from ..core.types import BITWIDTH, PACKED_DTYPE, ceil_div
 
-__all__ = ["bgemm", "bgemm_plain", "OUT_KINDS", "MAX_BLOCK_KW"]
+__all__ = ["bgemm", "bgemm_plain", "plan_bgemm", "OUT_KINDS", "MAX_BLOCK_KW"]
+
+SM_COUNT = 132                 # H100 SXM
+_STAGES, _STAGE_KW, _ROW_STRIDE, _COLUMN_PAD = 2, 32, 36, 8
 
 OUT_KINDS = ("accum", "float", "int8", "bitpacked")
 _KIND_CODES = {kind: i for i, kind in enumerate(OUT_KINDS)}
@@ -105,13 +112,36 @@ def _operands(multiplier, bias, thresholds, n, device, out_kind):
     return None, None, None
 
 
+def plan_bgemm(m: int, n: int, kw: int, block_kw: int) -> dict:
+    """Launch plan of the kernel: output tile (128 x 64, or 64 x 32 where
+    the larger one would start fewer blocks than the card has SMs), grid
+    (M tiles, N tiles, blocks of K) and shared-memory bytes. The wrapper
+    passes the plan to the kernel's entry, which refuses one that is not
+    what its tile needs."""
+    num_k = ceil_div(kw, block_kw)
+
+    def grid(bm, bn):
+        return (ceil_div(m, bm), ceil_div(n, bn), num_k)
+
+    tile = (128, 64)
+    if math.prod(grid(*tile)) < SM_COUNT:
+        tile = (64, 32)
+    bm, bn = tile
+    stage = bm * _ROW_STRIDE + max(bn * _ROW_STRIDE,
+                                   _STAGE_KW * (bn + _COLUMN_PAD))
+    return {"tile": tile, "grid": grid(bm, bn),
+            "blocks": math.prod(grid(bm, bn)),
+            "smem_bytes": 4 * _STAGES * stage}
+
+
 def _library():
     from ._build import load
 
     lib = load("bgemm")
     fn = lib.ce_bgemm
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ce_error_string.argtypes = [ctypes.c_int]
@@ -146,6 +176,10 @@ def _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min, clamp_max,
                       device=lhs.device)
     block_kw = kw if kw <= max_block_kw else max_block_kw
     num_k = ceil_div(kw, block_kw)
+    plan = plan_bgemm(m, n, kw, block_kw)
+    if plan["grid"][2] > 65535 or math.prod(plan["grid"][:2]) >= 2 ** 31:
+        raise ValueError(f"bgemm shape {(m, kw, n)} with blocks of "
+                         f"{block_kw} words exceeds the grid: {plan}")
     partial = (torch.empty((num_k, m, n), dtype=torch.int32,
                            device=lhs.device) if num_k > 1 else None)
     lib = _library()
@@ -157,6 +191,7 @@ def _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min, clamp_max,
     rc = lib.ce_bgemm(
         lhs.data_ptr(), b.data_ptr(), ptr(mul), ptr(bias_), ptr(thr),
         out.data_ptr(), ptr(partial), m, n, kw, block_kw, b_n_major,
+        int(plan["tile"] == (64, 32)), plan["blocks"], plan["smem_bytes"],
         _KIND_CODES[out_kind], int(clamp_min), int(clamp_max), stream)
     if rc != 0:
         raise RuntimeError("bgemm kernel launch failed: "

@@ -7,6 +7,13 @@ tensor it runs ``binary_residual_block_plain``, the plain PyTorch version of
 the same function. With ``has_residual=False`` it is the same conv without
 the add, for a conv whose consumer is not its residual add.
 
+The kernel is an implicit GEMM on the tensor cores (single-bit
+``mma.sync``, AND + popcount): it signs the activation band into packed words
+in shared memory and reads the packed filter as it is, so no prepared layout
+is needed. ``plan_residual_block`` is the launch plan (block size, grid,
+shared memory) in Python, where the CPU tests can check it; every shape
+``residual_block_supported`` accepts takes this kernel.
+
 Rounding: the conv result is an exact integer on both paths. The epilogue
 computes ``clip(2*acc) * mul`` and then ``+ bias`` as two roundings (no FMA),
 rounds to the activation type, and adds ``x`` with one more rounding, as the
@@ -27,7 +34,13 @@ from ..core.types import Padding
 from .bconv2d import bconv2d_mxu_float_in
 
 __all__ = ["binary_residual_block", "binary_residual_block_plain",
-           "residual_block_supported"]
+           "residual_block_supported", "plan_residual_block"]
+
+SM_COUNT = 132                 # H100 SXM
+MAX_SHARED_BYTES = 232_448     # 227 KB a block may use
+_BLOCK_CHANNELS = 64           # output channels per block
+_WARP_POSITIONS = 32           # output positions per warp
+_STAGE_STRIDE = _BLOCK_CHANNELS + 8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -57,13 +70,60 @@ def binary_residual_block_plain(x, packed_filter, transform: OutputTransform,
     return x + y if has_residual else y
 
 
+def plan_residual_block(n: int, h: int, w: int, c: int, c_out: int,
+                        itemsize: int = 2, warps: int | None = None,
+                        tiles_per_block: int | None = None) -> dict:
+    """Launch plan of the kernel for an (n, h, w, c) input of ``itemsize``
+    bytes an element. The wrapper passes the plan to the kernel's entry,
+    which refuses one that is not what its shared-memory layout needs.
+
+    A block takes ``32 * warps`` consecutive positions of the flat padded
+    index ``n * (h + 2) * (w + 2)``, signs their band once and computes
+    ``tiles_per_block`` tiles of 64 output channels from it. Unless given,
+    both are chosen by ``_choose_blocks``.
+    """
+    cw = -(-c // 32)
+    kw_pad = -(-9 * cw // 8) * 8
+    positions = n * (h + 2) * (w + 2)
+    n_tiles = -(-c_out // _BLOCK_CHANNELS)
+    if warps is None or tiles_per_block is None:
+        warps, tiles_per_block = _choose_blocks(positions, n_tiles)
+    bm = _WARP_POSITIONS * warps
+    band = bm + 2 * (w + 2) + 2
+    grid = (-(-positions // bm), -(-n_tiles // tiles_per_block))
+    words = (_BLOCK_CHANNELS * (kw_pad + 4)
+             + band * (cw + 4 if cw % 8 == 0 else cw)
+             + kw_pad + _BLOCK_CHANNELS + band)
+    return {"warps": warps, "tiles_per_block": tiles_per_block,
+            "grid": grid, "blocks": grid[0] * grid[1],
+            "smem_bytes": 4 * words + itemsize * bm * _STAGE_STRIDE}
+
+
+def _choose_blocks(positions: int, n_tiles: int) -> tuple[int, int]:
+    """(warps, tiles_per_block). Two channel tiles per band where there are
+    two: measured on an H100 (``chip_smoke.py --sweep-residual``), two beat
+    one at every QuickNet section and four lose more in blocks than they
+    save in signing. Then eight warps where that nearly fills the two 8-warp
+    blocks an SM holds, else four where every SM still gets a block, else
+    two."""
+    tiles_per_block = min(2, n_tiles)
+    groups = -(-n_tiles // tiles_per_block)
+
+    def blocks(warps):
+        return -(-positions // (_WARP_POSITIONS * warps)) * groups
+
+    if blocks(8) >= 0.9 * 2 * SM_COUNT:
+        return 8, tiles_per_block
+    return (4 if blocks(4) >= SM_COUNT else 2), tiles_per_block
+
+
 def _library():
     from ._build import load
 
     lib = load("residual_block")
     fn = lib.ce_residual_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ce_error_string.argtypes = [ctypes.c_int]
@@ -71,7 +131,9 @@ def _library():
     return lib
 
 
-def _launch(x, packed_filter, transform, has_residual):
+def _launch(x, packed_filter, transform, has_residual, block=None):
+    """Launches the kernel. ``block`` is (warps, tiles_per_block) in place
+    of the planner's choice, for a sweep over block sizes."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, not {x.device}")
     n, h, w, c = x.shape
@@ -96,6 +158,11 @@ def _launch(x, packed_filter, transform, has_residual):
             raise ValueError(f"{name} must be contiguous")
     if mul.shape != (c_out,) or bias.shape != (c_out,):
         raise ValueError("multiplier and bias need one value per channel")
+    plan = plan_residual_block(n, h, w, c, c_out, x.element_size(),
+                               *(block or ()))
+    if plan["smem_bytes"] > MAX_SHARED_BYTES or plan["blocks"] >= 2 ** 31:
+        raise ValueError(f"residual block {tuple(x.shape)} -> {c_out} "
+                         f"channels does not fit the kernel: {plan}")
     out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -103,7 +170,8 @@ def _launch(x, packed_filter, transform, has_residual):
         x.data_ptr(), packed_filter.data_ptr(), mul.data_ptr(),
         bias.data_ptr(), out.data_ptr(), n, h, w, c, c_out,
         int(transform.clamp_min), int(transform.clamp_max),
-        int(has_residual), _DTYPE_CODES[x.dtype], stream)
+        int(has_residual), _DTYPE_CODES[x.dtype], plan["warps"],
+        plan["tiles_per_block"], plan["blocks"], plan["smem_bytes"], stream)
     if rc != 0:
         raise RuntimeError("residual block kernel launch failed: "
                            + lib.ce_error_string(rc).decode())
