@@ -20,8 +20,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    - the binary GEMM at the six shapes BinaryAlexNet gives it at batch 128,
      with their output kinds; at KW = 3, at M < 64 and at N = 1000; at a
      ragged shape in all four output kinds with a random transform and
-     random thresholds, also with operands that are not 16-byte aligned; and
-     in its split-K form, forced at a ragged K.
+     random thresholds, also with operands that are not 16-byte aligned; in
+     its split-K form, forced at a ragged K; and with int8 output at the
+     four shapes QuickNet's binary convs give it at batch 128 in the int8
+     pipeline (multipliers of both signs);
+   - the exact integer layers of the int8 pipeline (no kernel of the port:
+     an im2col and ``torch._int_mm``, shifted int32 products for the
+     depthwise conv): the int32 accumulator of each int8 layer of QuickNet,
+     with the converted model's int8 kernel, computed on the card equals
+     torch's integer conv or matmul on the CPU (the convs at batch 8, the
+     head at batch 128), and so does the int8 max pool.
    ``--compare-only`` stops here. ``--sweep-residual`` times the residual
    block at every block size (warps, channel tiles per block) it can be
    launched with, at the QuickNet shapes, and stops: the choice in
@@ -37,13 +45,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      Interpreter.predict``: 16 residual block launches;
    - BinaryAlexNet (224x224x3, 1000 classes) at batch 128 in the packed
      domain, ``init_model -> convert_model -> packed_apply(domain="packed")``:
-     6 bgemm launches.
+     6 bgemm launches;
+   - QuickNet at batch 128 through the true-int8 pipeline, ``init_model ->
+     calibrate_model (two batches of 8) -> convert_model(int8_ranges=,
+     int8_out_ranges=) -> packed_apply``: 16 bgemm launches (int8 out), no
+     residual block launch, 16 int8 ADDs; its logits equal, ``torch.equal``,
+     those of the same forward through the plain GEMM.
    Check each output (finite, probabilities, shape) and its top-1 against
    the same forward through the plain versions on the card; BinaryAlexNet's
    also against its float-domain forward. Then run every zoo model once at
    batch 4 in the float domain, against the plain versions.
 4. Time ``benchmark_model`` (images/s) for both models (BinaryAlexNet in both
-   domains), print a torch.profiler breakdown of each forward's device time
+   domains, QuickNet also with ``int8_pipeline=True``), print a torch.profiler breakdown of each forward's device time
    by kernel, measure the rate of the int8 and the one-bit tensor-core MMA
    (``csrc/mma_rate.cu``), and time each kernel at each main-path shape
    beside its bound, its plain version and a library yardstick, timed only:
@@ -103,6 +116,14 @@ ALEXNET_GEMMS = [
     ("fc2", 128, 128, 4096, "float"),
 ]
 ALEXNET_FLOAT_CONVS = [((128, 13, 13, 256), 384), ((128, 13, 13, 384), 256)]
+# QuickNet's binary convs at batch 128 in the int8 pipeline, four per
+# section, int8 out: (section, M, KW, N).
+QUICKNET_INT8_GEMMS = [
+    ("section_0", 128 * 56 * 56, 9 * 2, 64),
+    ("section_1", 128 * 28 * 28, 9 * 4, 128),
+    ("section_2", 128 * 14 * 14, 9 * 8, 256),
+    ("section_3", 128 * 7 * 7, 9 * 16, 512),
+]
 RAGGED_GEMM = (1000, 77, 100)
 # (label, M, KW, N, output kind): a 1x1 conv of 96 channels (KW = 3), fewer
 # rows than a tile, and N = 1000 (not a multiple of the 64-column tile).
@@ -268,9 +289,11 @@ def gemm_case(rng, m, kw, n, kind, device, n_major=True):
 
 def gemm_work(m, kw, n, kind):
     """Bytes and operations of one binary GEMM: packed lhs and rhs read
-    once, the epilogue vectors read once, the output written once;
+    once, the epilogue vectors read once, the output written once (a word
+    per 32 columns bitpacked, one byte per value for int8, else four);
     2 * M * N * 32 * KW one-bit operations."""
-    out = 4 * m * -(-n // 32) if kind == "bitpacked" else 4 * m * n
+    out = (4 * m * -(-n // 32) if kind == "bitpacked"
+           else m * n if kind == "int8" else 4 * m * n)
     vectors = 4 * n if kind == "bitpacked" else 8 * n
     return 4 * m * kw + 4 * n * kw + vectors + out, 2 * m * n * 32 * kw
 
@@ -394,11 +417,100 @@ def kernel_times(rng, device, card):
     m, kw, n = RAGGED_GEMM
     for name, m, kw, n, kind, block_kw in (
             [g + (1024,) for g in ALEXNET_GEMMS]
-            + [("split-K", m, kw, n, "float", SPLITK_BLOCK_KW)]):
+            + [("split-K", m, kw, n, "float", SPLITK_BLOCK_KW)]
+            + [(f"QuickNet int8 {g[0]}", *g[1:], "int8", 1024)
+               for g in QUICKNET_INT8_GEMMS]):
         t = time_gemm(rng, m, kw, n, kind, device, block_kw, yardsticks=False)
         print(f"[kernel-times] bgemm {name} M={m} KW={kw} N={n} {kind}: "
               f"{t['ms']:.4f} ms; enqueued from Python "
               f"{t['ms_enqueued_from_python']:.4f} ms [{card}]", flush=True)
+
+
+def int8_quicknet(device, seed=0):
+    """QuickNet calibrated and converted for the true-int8 pipeline as
+    ``benchmark_model(int8_pipeline=True)`` does it: random weights from
+    ``seed``, two calibration batches of 8 from ``seed + 1``. Returns the
+    spec, the float parameters and the int8 artifact layers (numpy)."""
+    import numpy as np
+
+    from compute_engine_tpu_torch.models import (calibrate_model,
+                                                 convert_model, get_model,
+                                                 init_model)
+
+    spec = get_model("quicknet")
+    params = init_model(spec, seed=seed, randomize_bn=True)
+    crng = np.random.default_rng(seed + 1)
+    in_r, out_r = calibrate_model(
+        spec, params,
+        [crng.normal(0, 1, (8, *spec.input_size, 3)).astype(np.float32)
+         for _ in range(2)], with_outputs=True, device=device)
+    return spec, params, convert_model(spec, params, int8_ranges=in_r,
+                                       int8_out_ranges=out_r)
+
+
+def compare_integer_layers(rng, layers, device):
+    """Each int8 layer of QuickNet, with its converted int8 kernel and a
+    random int8 input of the shape the forward gives it: the int32
+    accumulator computed on the card equals torch's integer conv or matmul
+    on the CPU. So does the int8 max pool of the transitions."""
+    import torch
+    import torch.nn.functional as F
+
+    from compute_engine_tpu_torch.models import layers as L
+
+    def int8(shape):
+        return torch.from_numpy(rng.integers(-127, 128, size=shape,
+                                             dtype="int8"))
+
+    def on_cpu(x, k, stride, groups=1):
+        xn = L._same_pad(x.permute(0, 3, 1, 2).to(torch.int32), k.shape[:2],
+                         stride, (1, 1), value=0)
+        kn = k.to(torch.int32)
+        kn = (kn.permute(2, 3, 0, 1) if groups > 1
+              else kn.permute(3, 2, 0, 1))
+        return F.conv2d(xn, kn, stride=stride, groups=groups).permute(
+            0, 2, 3, 1)
+
+    cases = [("stem_conv", (8, 224, 224, 3)),
+             ("stem_depthwise", (8, 112, 112, 16)),
+             ("stem_pointwise", (8, 56, 56, 16)),
+             ("transition_1", (8, 28, 28, 64)),
+             ("transition_2", (8, 14, 14, 128)),
+             ("transition_3", (8, 7, 7, 256)),
+             ("head", (128, 512))]
+    for name, shape in cases:
+        entry = layers[name]
+        k = torch.from_numpy(entry["kernel_int8"])
+        x = int8(shape)
+        if entry["kind"] == "dense":
+            got = L.dense_int8(x.to(device), k.to(device))
+            want = x.to(torch.int32) @ k.to(torch.int32)
+        elif entry["kind"] == "depthwise_conv":
+            stride = tuple(entry["stride"])
+            got = L.depthwise_conv2d_int8(x.to(device), k.to(device), stride)
+            want = on_cpu(x, k, stride, groups=shape[-1])
+        else:
+            stride = tuple(entry["stride"])
+            got = L.conv2d_int8(x.to(device), k.to(device), stride)
+            want = on_cpu(x, k, stride)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and got.is_cuda
+              and torch.equal(got.cpu(), want),
+              f"int8 layer {name} {shape}: the card's int32 accumulator != "
+              "the CPU's")
+        print(f"[compare] int8 layer {name} {'x'.join(map(str, shape))} x "
+              f"{'x'.join(map(str, k.shape))}: int32 accumulator on the card "
+              f"equals the CPU's integer {entry['kind']} ({TOLERANCE}), "
+              f"max |acc| {int(want.abs().max())}", flush=True)
+    x = -int8((8, 56, 56, 64)).abs() - 1  # all negative: padding must not win
+    for pool, stride, padding in ((2, 2, "SAME"), (3, 2, "SAME")):
+        got = L.max_pool(x.to(device), (pool, pool), (stride, stride), padding)
+        want = L.max_pool(x, (pool, pool), (stride, stride), padding)
+        check(got.dtype == torch.int8 and torch.equal(got.cpu(), want)
+              and int(want.max()) < 0,
+              f"int8 max pool {pool}x{pool}/{stride}: card != CPU")
+        print(f"[compare] int8 max pool {pool}x{pool}/{stride} {padding} "
+              f"8x56x56x64: equal to the CPU's ({TOLERANCE})", flush=True)
 
 
 def max_abs_diff(got, want):
@@ -430,7 +542,8 @@ def main():
     from compute_engine_tpu_torch.kernels.bgemm import bgemm, bgemm_plain
     from compute_engine_tpu_torch.kernels.residual import (
         binary_residual_block, binary_residual_block_plain)
-    from compute_engine_tpu_torch.models import (MODELS, convert_model,
+    from compute_engine_tpu_torch.models import (MODELS, Int8Tensor,
+                                                 PackedBuilder, convert_model,
                                                  get_model, init_model,
                                                  packed_apply,
                                                  prepare_runtime_arrays)
@@ -456,6 +569,9 @@ def main():
                 print(f"[build] {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
+    # The int8 pipeline's phases draw from a generator of their own, so that
+    # the earlier phases keep the inputs they have always had.
+    rng8 = np.random.default_rng(8)
     if "--kernel-times" in args:
         kernel_times(rng, dev, card)
         return 0
@@ -503,11 +619,14 @@ def main():
               f"{c_out} channels bfloat16 no-residual: equal ({TOLERANCE})",
               flush=True)
 
-    gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0}
+    gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0, "bgemm_int8": 0.0}
     gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})
                   for name, m, kw, n, kind in ALEXNET_GEMMS]
     gemm_cases += [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})
                    for name, m, kw, n, kind in EDGE_GEMMS]
+    gemm_cases += [(f"QuickNet {name} {m}x{kw}x{n}", (m, kw, n, "int8"),
+                    {"form": "bgemm_int8"})
+                   for name, m, kw, n in QUICKNET_INT8_GEMMS]
     m, kw, n = RAGGED_GEMM
     gemm_cases += [(f"ragged {m}x{kw}x{n}", (m, kw, n, kind), {})
                    for kind in ("accum", "float", "int8", "bitpacked")]
@@ -519,8 +638,9 @@ def main():
                     (m, kw, n, kind), {"max_block_kw": SPLITK_BLOCK_KW})
                    for kind in ("accum", "float", "int8", "bitpacked")]
     for label, (m, kw, n, kind), opts in gemm_cases:
-        lhs, rhs, kwargs = gemm_case(rng, m, kw, n, kind, dev,
-                                     n_major=opts.get("n_major", True))
+        lhs, rhs, kwargs = gemm_case(
+            rng8 if opts.get("form") == "bgemm_int8" else rng, m, kw, n, kind,
+            dev, n_major=opts.get("n_major", True))
         if opts.get("unaligned"):  # one word into a larger allocation
             lhs = torch.cat([lhs.new_zeros(1), lhs.reshape(-1)])[1:].view(m, kw)
             rhs = torch.cat([rhs.new_zeros(1), rhs.t().reshape(-1)])[1:].view(
@@ -533,7 +653,8 @@ def main():
         want = bgemm_plain(lhs, rhs, **kwargs)
         torch.cuda.synchronize()
         err = max_abs_diff(got, want)
-        form = "bgemm_splitk" if "max_block_kw" in opts else "bgemm"
+        form = opts.get("form", "bgemm_splitk" if "max_block_kw" in opts
+                        else "bgemm")
         gemm_err[form] = max(gemm_err[form], err)
         check(got.dtype == want.dtype and torch.equal(got, want),
               f"bgemm {label} {kind}: kernel != plain (max |diff| {err})")
@@ -543,6 +664,11 @@ def main():
     if "--sweep-residual" in args:
         sweep_residual(rng, dev, card)
         return 0
+    t0 = time.perf_counter()
+    spec8, params8, layers8_np = int8_quicknet(dev)
+    print(f"[quicknet int8] init + calibrate (2 batches of 8 on the card) + "
+          f"convert {time.perf_counter() - t0:.2f} s", flush=True)
+    compare_integer_layers(rng8, layers8_np, dev)
     if "--compare-only" in args:
         print("chip_smoke: --compare-only, stopping after phase 2")
         return 0
@@ -622,6 +748,61 @@ def main():
     check(float_counts == (3, 3), "float-domain BinaryAlexNet: 3 bgemm and "
           f"3 residual block launches, got {float_counts}")
 
+    # QuickNet at batch 128 through the true-int8 pipeline. Every binary conv
+    # reads the signs off int8 values and writes int8 through the GEMM's
+    # epilogue; the block kernel takes no int8 stream.
+    layers8 = layers_from_numpy(prepare_runtime_arrays(layers8_np), dev)
+    x_dev = torch.from_numpy(x).to(dev)
+    add_results = []
+    builder_add = PackedBuilder.add
+
+    def counting_add(self, a, b):
+        out = builder_add(self, a, b)
+        add_results.append(isinstance(out, Int8Tensor))
+        return out
+
+    PackedBuilder.add = counting_add
+    try:
+        binary_residual_block.launches = 0
+        bgemm.launches = bgemm.splitk_launches = 0
+        logits8 = packed_apply(spec8, layers8, x_dev, return_logits=True)
+        torch.cuda.synchronize()
+        int8_launches = bgemm.launches
+        counts8 = (int8_launches, bgemm.splitk_launches,
+                   binary_residual_block.launches)
+        adds8 = list(add_results)
+    finally:
+        PackedBuilder.add = builder_add
+    check(counts8 == (16, 0, 0), "int8 QuickNet: 16 bgemm launches and no "
+          f"split-K or residual block launch per forward, got {counts8}")
+    check(adds8 == [True] * 16, "int8 QuickNet: all 16 adds as int8 ADDs, "
+          f"got {sum(adds8)} of {len(adds8)}")
+    check(tuple(logits8.shape) == (128, 1000) and logits8.dtype
+          == torch.float32 and bool(torch.isfinite(logits8).all()),
+          f"int8 QuickNet logits: {tuple(logits8.shape)} {logits8.dtype}")
+    plain8 = packed_apply(spec8, layers8, x_dev, return_logits=True,
+                          gemm=bgemm_plain,
+                          residual_block=binary_residual_block_plain)
+    agree8 = (logits8.argmax(-1) == plain8.argmax(-1)).sum().item()
+    check(torch.equal(logits8, plain8), "int8 QuickNet: logits differ from "
+          "the plain-GEMM forward (max |diff| "
+          f"{max_abs_diff(logits8, plain8)})")
+    check(agree8 == 128, f"int8 QuickNet: top-1 agreement with the plain "
+          f"path {agree8}/128")
+    probs8 = torch.softmax(logits8, dim=-1)
+    # Not gated: an untrained model's end-to-end agreement with the float
+    # domain means little (one sign flip at a binary conv's input, a value
+    # within half a quantisation step of zero, changes the prediction).
+    float8 = torch.from_numpy(probs).to(dev)
+    print(f"[quicknet int8] batch 128: {counts8[0]} bgemm launches (int8 "
+          f"out), {counts8[2]} residual block launches, {sum(adds8)} int8 "
+          f"ADDs; logits equal to the plain-GEMM forward ({TOLERANCE}), "
+          f"top-1 {agree8}/128; against the bf16 float-domain forward of "
+          "the same weights (not gated): top-1 agreement "
+          f"{(probs8.argmax(-1) == float8.argmax(-1)).sum().item()}/128, "
+          f"max |dprob| {(probs8 - float8).abs().max().item():.3g}",
+          flush=True)
+
     # Every zoo model runs on the card in the float domain (batch 4): the
     # residual kernel takes the 3x3 stride-1 one-padded binary convs, bgemm
     # every other binary conv and every binary dense.
@@ -655,8 +836,15 @@ def main():
     print(f"[bench] quicknet b128 bf16: {bench['images_per_sec']:.1f} images/s,"
           f" p50 {bench['latency_ms_p50']:.3f} ms/forward [{card}] "
           f"{json.dumps(bench)}", flush=True)
-    x_dev = torch.from_numpy(x).to(dev)
     profile_forward(lambda: packed_apply(spec, interp.layers, x_dev))
+    bench8 = benchmark_model("quicknet", batch=128, iters=10, warmup=3,
+                             repeats=5, device=dev, int8_pipeline=True)
+    print(f"[bench] quicknet b128 int8 pipeline: "
+          f"{bench8['images_per_sec']:.1f} images/s, p50 "
+          f"{bench8['latency_ms_p50']:.3f} ms/forward (bf16 float domain in "
+          f"this run: {bench['latency_ms_p50']:.3f} ms) [{card}] "
+          f"{json.dumps(bench8)}", flush=True)
+    profile_forward(lambda: packed_apply(spec8, layers8, x_dev), top=16)
     # The tensor cores' rate at a binary dot product (binary multiply-adds
     # per second; the H100's data sheet gives none for one bit).
     from compute_engine_tpu_torch.kernels.mma_rate import KINDS as MMA_KINDS
@@ -731,6 +919,18 @@ def main():
           f"N % 8 == 0 only), bound {splitk['bound_ms']:.4f} ms "
           f"({splitk['bound_by']}) [{card}]", flush=True)
 
+    # The int8 pipeline's GEMMs: four launches per shape in a QuickNet
+    # forward, int8 out.
+    int8_shapes = []
+    for name, m8, kw8, n8 in QUICKNET_INT8_GEMMS:
+        g = time_gemm(rng8, m8, kw8, n8, "int8", dev)
+        int8_shapes.append({"layer": name, **g})
+        print(f"[time] bgemm int8 {name} M={m8} KW={kw8} N={n8}: kernel "
+              f"{g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
+              f"torch._int_mm {g['library_ms']:.4f} ms, bound "
+              f"{g['bound_ms']:.4f} ms ({g['bound_by']}) [{card}]",
+              flush=True)
+
     def bound_of_launches(items, weight=1):
         """Launches do not overlap, so the bound of a forward is the sum of
         its launches' bounds; it is named after the side that sets more of
@@ -743,6 +943,17 @@ def main():
     gemm_bound, gemm_bound_by = bound_of_launches(gemm_shapes)
     # The line's numbers are per QuickNet forward: 16 launches, 4 per shape.
     bound_fw, bound_by = bound_of_launches(shapes, BLOCKS_PER_SHAPE)
+    int8_bound, int8_bound_by = bound_of_launches(int8_shapes,
+                                                  BLOCKS_PER_SHAPE)
+
+    def int8_per_forward(key):
+        return sum(BLOCKS_PER_SHAPE * g[key] for g in int8_shapes)
+
+    print(f"[time] bgemm int8 per QuickNet forward (16 launches): kernel "
+          f"{int8_per_forward('ms'):.4f} ms, plain "
+          f"{int8_per_forward('plain_ms'):.4f} ms, torch._int_mm "
+          f"{int8_per_forward('library_ms'):.4f} ms, bound {int8_bound:.4f} "
+          f"ms ({int8_bound_by}) [{card}]", flush=True)
     kernels = [{
         "name": "residual_block",
         "route": "cuda",
@@ -772,6 +983,21 @@ def main():
         "per": "one packed-domain BinaryAlexNet batch-128 forward "
                "(6 launches)",
         "shapes": gemm_shapes,
+    }, {
+        "name": "bgemm_int8",
+        "route": "cuda",
+        "source": "compute_engine_tpu_torch/csrc/bgemm.cu",
+        "replaces": "compute_engine_tpu/kernels/bgemm.py:200",
+        "launches": int8_launches,
+        "max_abs_err": gemm_err["bgemm_int8"],
+        "ms": int8_per_forward("ms"),
+        "plain_ms": int8_per_forward("plain_ms"),
+        "bound_ms": int8_bound,
+        "bound_by": int8_bound_by,
+        "library_ms": int8_per_forward("library_ms"),
+        "per": "one QuickNet batch-128 forward in the int8 pipeline (16 "
+               "launches of the same kernel with its int8 epilogue)",
+        "shapes": int8_shapes,
     }, {
         "name": "bgemm_splitk",
         "route": "cuda",

@@ -8,7 +8,10 @@ A parameter tree or an artifact written by the JAX package is plain numpy
 * ``layers_from_numpy``: artifact layers (numpy, ``uint32`` packed words) ->
   runtime layers (C-contiguous tensors on a device, packed words viewed as
   ``int32``, since torch has no right shift for ``uint32`` on the CPU).
-  Scalars and strings pass through; tensors are moved to the device.
+  Scalars and strings pass through; tensors are moved to the device. In an
+  int8 artifact ``kernel_int8`` stays int8 and ``w_scale`` float32, the
+  ``in_scale``/``out_scale`` stay Python floats, and an ``"add"`` entry,
+  which holds no array, passes through whole.
 """
 
 from __future__ import annotations

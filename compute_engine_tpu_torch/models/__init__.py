@@ -1,10 +1,15 @@
 """Model definitions and builders for the Larq-Zoo family."""
 
 from .builder import (  # noqa: F401
+    CalibrateBuilder,
     ConvertBuilder,
+    FloatBuilder,
     InitBuilder,
+    Int8Tensor,
     PackedBuilder,
+    calibrate_model,
     convert_model,
+    float_apply,
     init_model,
     packed_apply,
     prepare_runtime_arrays,

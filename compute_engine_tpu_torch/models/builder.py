@@ -1,16 +1,22 @@
 """Model builders: one architecture definition, several execution modes.
 
-The port of ``compute_engine_tpu.models.builder`` for the float-domain
-inference path:
+The port of ``compute_engine_tpu.models.builder``:
 
-  InitBuilder     creates the float parameter tree (Keras layouts) from a
-                  numpy seed, calling the rng in the same order as the JAX
-                  package, so both give the same weights bit for bit
-  ConvertBuilder  emits the packed inference artifact (BN folding, sign
-                  binarisation, bitpacking) as numpy arrays, identical to the
-                  JAX package's
-  PackedBuilder   packed inference forward, in the float domain or, for
-                  chains of binary layers, in the packed domain
+  InitBuilder       creates the float parameter tree (Keras layouts) from a
+                    numpy seed, calling the rng in the same order as the JAX
+                    package, so both give the same weights bit for bit
+  FloatBuilder      QAT-style float forward (``ste_sign`` fake-quant): the
+                    semantic oracle
+  CalibrateBuilder  the float forward, recording the abs-max range of every
+                    quantisable layer's input and output
+  ConvertBuilder    emits the packed inference artifact (BN folding, sign
+                    binarisation, bitpacking; with calibrated ranges also
+                    int8 weights, scales and int8 output transforms) as numpy
+                    arrays, identical to the JAX package's
+  PackedBuilder     packed inference forward, in the float domain or, for
+                    chains of binary layers, in the packed domain; layers
+                    converted with ranges run in int8 and exchange
+                    ``Int8Tensor``s (the true-int8 pipeline)
 
 Init and Convert trace shapes on ``torch.device("meta")`` (the counterpart of
 ``jax.eval_shape``): no activation math runs, only the host-side numpy
@@ -31,7 +37,7 @@ from ..core.bitpack import bitpack_np, bitunpack
 from ..core.params import BConv2DParams, tflite_same_padding
 from ..core.transforms import (OutputTransform, compute_output_thresholds,
                                fuse_output_transform)
-from ..core.types import Activation, Padding
+from ..core.types import Activation, Padding, round_half_away
 from ..device import resolve_device
 from ..interop import layers_from_numpy
 from ..kernels.bgemm import bgemm
@@ -39,8 +45,10 @@ from ..kernels.residual import binary_residual_block, residual_block_supported
 from ..ops import bconv2d, bmaxpool2d, quantize
 from . import layers as L
 
-__all__ = ["InitBuilder", "ConvertBuilder", "PackedBuilder", "init_model",
-           "convert_model", "packed_apply", "prepare_runtime_arrays"]
+__all__ = ["InitBuilder", "FloatBuilder", "CalibrateBuilder",
+           "ConvertBuilder", "PackedBuilder", "Int8Tensor", "init_model",
+           "float_apply", "calibrate_model", "convert_model",
+           "packed_apply", "prepare_runtime_arrays"]
 
 
 class _Base:
@@ -176,29 +184,170 @@ class InitBuilder(_Base):
         return L.apply_activation(y, activation)
 
 
-class ConvertBuilder(_Base):
-    """Emits the packed inference artifact while tracing the forward.
-
-      float conv   BN folded into the kernel (+ bias)
-      binary conv  latent weights -> sign -> OHWI bitpack; BN -> per-channel
-                   post_mul/post_bias -> fused output transform
-    """
+class FloatBuilder(_Base):
+    """QAT-style float forward from a parameter tree (the accuracy oracle)."""
 
     def __init__(self, params):
         self.params = params
+
+    def _kernel(self, name, x):
+        return torch.as_tensor(self.params[name]["kernel"]).to(x.device)
+
+    def _apply_bn(self, y, name):
+        """BN application hook: inference-mode moving statistics here; a
+        training builder overrides it with batch statistics."""
+        return L.batch_norm(y, _on(self.params[name]["bn"], y))
+
+    def conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
+                activation=None, name, groups=1, dilation=1):
+        y = L.conv2d(x, self._kernel(name, x), _pair(stride), padding,
+                     groups=groups, dilation=_pair(dilation))
+        return L.apply_activation(self._apply_bn(y, name), activation)
+
+    def depthwise_conv_bn(self, x, ksize, *, stride=1, activation=None,
+                          name):
+        y = L.depthwise_conv2d(x, self._kernel(name, x), _pair(stride))
+        return L.apply_activation(self._apply_bn(y, name), activation)
+
+    def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
+                       pad_value=1, name, groups=1, dilation=1):
+        y = _float_binary_conv(x, self._kernel(name, x), _pair(stride),
+                               padding, pad_value, groups=groups,
+                               dilation=_pair(dilation))
+        return self._apply_bn(y, name)
+
+    def binary_dense_bn(self, x, units, *, name):
+        return self._apply_bn(
+            _float_binary_dense(x, self._kernel(name, x)), name)
+
+    def dense(self, x, units, *, use_bias=True, activation=None, name):
+        p = self.params[name]
+        y = L.dense(x, self._kernel(name, x),
+                    torch.as_tensor(p["bias"]).to(x.device)
+                    if use_bias else None)
+        return L.apply_activation(y, activation)
+
+
+class CalibrateBuilder(FloatBuilder):
+    """Float forward that records per-layer input/output abs-max ranges.
+
+    The activation-range calibration pass of int8 conversion. Run it over a
+    few batches, then pass ``ranges`` to ``convert_model(...,
+    int8_ranges=)``; pass ``out_ranges`` as ``int8_out_ranges=`` to keep int8
+    tensors flowing between consecutive int8 layers (the true-int8 pipeline)
+    instead of rescaling to float after every layer.
+    """
+
+    def __init__(self, params, ranges=None):
+        super().__init__(params)
+        self.ranges = ranges if ranges is not None else {}
+        self.out_ranges = {}
+        self._add_idx = 0
+
+    def _record(self, name, x, table):
+        table[name] = max(table.get(name, 0.0), float(x.abs().max()))
+
+    def add(self, a, b):
+        # Residual adds get names by trace order (the forward is
+        # deterministic, so every builder sees the same sequence). An add
+        # with a calibrated output range becomes an int8 ADD in the converted
+        # model, which lets the residual stream itself flow in int8.
+        name = f"__add_{self._add_idx}"
+        self._add_idx += 1
+        y = super().add(a, b)
+        self._record(name, y, self.out_ranges)
+        return y
+
+    def _recorded(self, layer, x, *args, **kw):
+        self._record(kw["name"], x, self.ranges)
+        y = layer(x, *args, **kw)
+        self._record(kw["name"], y, self.out_ranges)
+        return y
+
+    def conv_bn(self, x, filters, ksize, **kw):
+        return self._recorded(super().conv_bn, x, filters, ksize, **kw)
+
+    def depthwise_conv_bn(self, x, ksize, **kw):
+        return self._recorded(super().depthwise_conv_bn, x, ksize, **kw)
+
+    def binary_conv_bn(self, x, filters, ksize, **kw):
+        # Only the output of a binary conv is quantisable (its input is one
+        # bit by definition); an out range makes it write int8.
+        y = super().binary_conv_bn(x, filters, ksize, **kw)
+        self._record(kw["name"], y, self.out_ranges)
+        return y
+
+    def dense(self, x, units, **kw):
+        return self._recorded(super().dense, x, units, **kw)
+
+
+class ConvertBuilder(_Base):
+    """Emits the packed inference artifact while tracing the forward.
+
+      float conv   BN folded into the kernel (+ bias); with a calibrated
+                   input range also per-channel int8 weights and the input
+                   (and, with an output range, output) scale
+      binary conv  latent weights -> sign -> OHWI bitpack; BN -> per-channel
+                   post_mul/post_bias -> fused output transform; with an
+                   output range also the transform that requantises to int8
+      add          with an output range, an ``"add"`` entry under its
+                   trace-order name ``__add_{i}`` holding the output scale
+    """
+
+    def __init__(self, params, int8_ranges=None, int8_out_ranges=None):
+        self.params = params
         self.layers = {}
+        self.int8_ranges = int8_ranges or {}
+        # Output ranges enable the true-int8 pipeline: a layer with an
+        # out_scale requantises to int8 instead of rescaling to float.
+        self.int8_out_ranges = int8_out_ranges or {}
+        self._add_idx = 0
+
+    def add(self, a, b):
+        name = f"__add_{self._add_idx}"
+        self._add_idx += 1
+        if name in self.int8_out_ranges:
+            self.layers[name] = {
+                "kind": "add",
+                "out_scale": float(self.int8_out_ranges[name]) / 127.0,
+            }
+        return super().add(a, b)
+
+    def _maybe_int8(self, name, entry, reduce_axes=None):
+        """Per-channel int8 weight quantisation + input/output scales.
+
+        ``reduce_axes``: kernel axes reduced for the per-channel scale (all
+        but the last by default: per output channel; depthwise kernels pass
+        (0, 1, 3) to scale per depth channel).
+        """
+        if name not in self.int8_ranges:
+            return entry
+        kernel = entry["kernel"]  # BN already folded
+        if reduce_axes is None:
+            reduce_axes = tuple(range(kernel.ndim - 1))
+        w_scale = np.maximum(
+            np.max(np.abs(kernel), axis=reduce_axes, keepdims=True),
+            1e-9) / 127.0
+        entry["kernel_int8"] = np.clip(
+            np.round(kernel / w_scale), -127, 127).astype(np.int8)
+        entry["w_scale"] = np.squeeze(w_scale, reduce_axes).astype(np.float32)
+        entry["in_scale"] = float(self.int8_ranges[name]) / 127.0
+        if name in self.int8_out_ranges:
+            entry["out_scale"] = float(self.int8_out_ranges[name]) / 127.0
+        del entry["kernel"]
+        return entry
 
     def conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
                 activation=None, name, groups=1, dilation=1):
         p = self.params[name]
         mul, bias = L.fold_batch_norm(p["bn"])
         kernel = np.asarray(p["kernel"], np.float32) * mul
-        self.layers[name] = {
+        self.layers[name] = self._maybe_int8(name, {
             "kind": "conv", "kernel": kernel.astype(np.float32),
             "bias": bias, "stride": _pair(stride), "padding": padding,
             "activation": activation, "groups": groups,
             "dilation": _pair(dilation),
-        }
+        })
         return L.batch_norm(
             L.conv2d(x, torch.as_tensor(p["kernel"]), _pair(stride), padding,
                      groups=groups, dilation=_pair(dilation)),
@@ -209,10 +358,10 @@ class ConvertBuilder(_Base):
         p = self.params[name]
         mul, bias = L.fold_batch_norm(p["bn"])
         kernel = np.asarray(p["kernel"], np.float32) * mul.reshape(1, 1, -1, 1)
-        self.layers[name] = {
+        self.layers[name] = self._maybe_int8(name, {
             "kind": "depthwise_conv", "kernel": kernel.astype(np.float32),
             "bias": bias, "stride": _pair(stride), "activation": activation,
-        }
+        }, reduce_axes=(0, 1, 3))
         return L.batch_norm(
             L.depthwise_conv2d(x, torch.as_tensor(p["kernel"]),
                                _pair(stride)), _on(p["bn"], x))
@@ -248,6 +397,15 @@ class ConvertBuilder(_Base):
             "groups": groups,
             "dilation": _pair(dilation),
         }
+        if name in self.int8_out_ranges:
+            # int8-output binary conv: the requantisation is folded into the
+            # per-channel transform, so the GEMM's epilogue writes int8.
+            out_scale = float(self.int8_out_ranges[name]) / 127.0
+            tr8 = fuse_output_transform(post_mul, post_bias, k,
+                                        output_scale=out_scale)
+            self.layers[name]["int8_multiplier"] = tr8.multiplier
+            self.layers[name]["int8_bias"] = tr8.bias
+            self.layers[name]["out_scale"] = out_scale
         return L.batch_norm(
             _float_binary_conv(x, torch.as_tensor(p["kernel"]).to(x.device),
                                _pair(stride), padding, pad_value,
@@ -280,12 +438,12 @@ class ConvertBuilder(_Base):
 
     def dense(self, x, units, *, use_bias=True, activation=None, name):
         p = self.params[name]
-        self.layers[name] = {
+        self.layers[name] = self._maybe_int8(name, {
             "kind": "dense",
             "kernel": np.asarray(p["kernel"], np.float32),
             "bias": np.asarray(p["bias"], np.float32) if use_bias else None,
             "activation": activation,
-        }
+        })
         y = L.dense(x, torch.as_tensor(p["kernel"]),
                     torch.as_tensor(p["bias"]).to(x.device)
                     if use_bias else None)
@@ -317,6 +475,39 @@ class _BinaryStream:
         if self._float is None:
             self._float = self._float_fn()
         return self._float
+
+
+class Int8Tensor:
+    """An int8 activation tensor with its symmetric scale (zero point 0).
+
+    The unit of the true-int8 pipeline: a layer converted with an out_scale
+    requantises to int8 and hands this wrapper to the next layer, which
+    consumes the int8 values as they are, with no float round trip between
+    consecutive int8 layers. Binary layers read signs straight off the int8
+    values (bit = v < 0, exact at zero point 0).
+    """
+
+    def __init__(self, values, scale: float):
+        self.values = values
+        self.scale = float(scale)
+
+    def to_float(self):
+        return self.values.to(torch.float32) * self.scale
+
+
+def _f32(value, like):
+    """A Python float as a float32 scalar tensor on ``like``'s device.
+
+    Dividing a tensor by a Python number multiplies by its reciprocal on
+    CUDA; a tensor divisor keeps the IEEE division that the JAX package
+    does, so a requantised value lands on the same side of a rounding tie.
+    """
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def _to_int8(y):
+    """Round half away from zero and saturate to the symmetric int8 range."""
+    return torch.clamp(round_half_away(y), -127, 127).to(torch.int8)
 
 
 class _DeferredBConv:
@@ -368,11 +559,24 @@ class PackedBuilder(_Base):
     the activation stream between layers). ``return_logits`` makes the final
     softmax the identity.
 
-    ``domain="float"``: every 3x3 stride-1 one-padded binary conv goes
-    through ``residual_block``, fused with its residual add when that is its
-    consumer; every other binary conv runs ``quantize`` -> ``bconv2d_bgemm``
-    and every binary dense ``quantize`` -> ``bgemm``, as JAX's
-    ``kernel="bgemm"`` does.
+    ``domain="float"``: every 3x3 stride-1 one-padded binary conv on float
+    activations goes through ``residual_block``, fused with its residual add
+    when that is its consumer; every other binary conv runs ``quantize`` ->
+    ``bconv2d_bgemm`` and every binary dense ``quantize`` -> ``bgemm``, as
+    JAX's ``kernel="bgemm"`` does.
+
+    The true-int8 pipeline (an artifact converted with calibrated ranges): a
+    conv, depthwise conv or dense layer with ``kernel_int8`` multiplies int8
+    by int8 into int32 (``layers.conv2d_int8`` and its siblings); with an
+    ``out_scale`` it requantises and returns an ``Int8Tensor``, which the
+    next int8 layer, a max pool, a flatten and a calibrated residual add
+    (the int8 ADD) consume without a float round trip. A binary conv or
+    dense reads the signs off an ``Int8Tensor``'s values; a binary conv with
+    an ``out_scale`` writes int8 through the binary GEMM's int8 epilogue.
+    The residual block kernel reads bfloat16 or float32 only and never sees
+    an ``Int8Tensor``: a binary conv with int8 input or int8 output always
+    takes the GEMM, and its residual add is the int8 ADD. Every other
+    consumer takes the float view (``Int8Tensor.to_float``).
 
     ``domain="packed"``: binary layers chain through bitpacked activations
     (convert-time thresholds and sign-flipped filters), pooling and flatten
@@ -395,12 +599,14 @@ class PackedBuilder(_Base):
         self.residual_block = residual_block
         self.gemm = gemm
         self.domain = domain
+        self._add_idx = 0
 
     def _f(self, x):
-        """The float view of a deferred conv or a binary stream."""
+        """The float view of a deferred conv, a binary stream or an int8
+        tensor."""
         if isinstance(x, _DeferredBConv):
             return x.materialize()
-        if isinstance(x, _BinaryStream):
+        if isinstance(x, (_BinaryStream, Int8Tensor)):
             return x.to_float()
         return x
 
@@ -409,6 +615,11 @@ class PackedBuilder(_Base):
         return y.to(self.compute_dtype)
 
     def max_pool(self, x, pool_size, stride=None, padding="SAME"):
+        if isinstance(x, Int8Tensor):
+            # max commutes with the positive scale: pool the int8 values.
+            return Int8Tensor(
+                super().max_pool(x.values, pool_size, stride, padding),
+                x.scale)
         if isinstance(x, _BinaryStream):
             # sign is monotonic, so max commutes with it: pooling the packed
             # words (bitwise AND) equals sign(float max pool).
@@ -426,6 +637,8 @@ class PackedBuilder(_Base):
         return super().avg_pool(self._f(x), *a, **kw)
 
     def flatten(self, x):
+        if isinstance(x, Int8Tensor):
+            return Int8Tensor(super().flatten(x.values), x.scale)
         if isinstance(x, _BinaryStream) and x.channels % 32 == 0:
             # Exact only when no padding bits would interleave into the
             # flattened word stream.
@@ -439,9 +652,23 @@ class PackedBuilder(_Base):
         return super().global_avg_pool(self._f(x))
 
     def add(self, a, b):
+        # Counted before the fused-add shortcut, so that every builder gives
+        # the same add the same name.
+        name = f"__add_{self._add_idx}"
+        self._add_idx += 1
         for u, v in ((a, b), (b, a)):
             if isinstance(v, _DeferredBConv) and v.fuses_with(u):
                 return v.fused_add()
+        entry = self.layers.get(name)
+        if (entry is not None and entry.get("kind") == "add"
+                and isinstance(a, Int8Tensor) and isinstance(b, Int8Tensor)):
+            # int8 residual add (TFLite int8 ADD semantics): rescale both
+            # operands to the calibrated output scale, round, saturate. The
+            # residual stream stays int8 end to end.
+            so = float(entry["out_scale"])
+            y = (a.values.to(torch.float32) * (a.scale / so)
+                 + b.values.to(torch.float32) * (b.scale / so))
+            return Int8Tensor(_to_int8(y), so)
         return super().add(self._f(a), self._f(b))
 
     def concat(self, xs):
@@ -456,9 +683,50 @@ class PackedBuilder(_Base):
             return x.to(torch.float32)
         return super().softmax(x)
 
+    def _int8_in(self, x, a):
+        """int8 input values and their scale, quantising floats on entry.
+
+        An ``Int8Tensor`` is consumed as it is, at its producer's scale."""
+        if isinstance(x, Int8Tensor):
+            return x.values, x.scale
+        x = self._f(x).to(torch.float32)
+        return _to_int8(x / _f32(a["in_scale"], x)), a["in_scale"]
+
+    def _int8_out(self, acc, scale, a, activation, store=True):
+        """Rescale an int32 accumulator: to an ``Int8Tensor`` when the layer
+        has an out_scale (requantise, with the activation applied in the
+        quantised domain), else to float. Float32 throughout, the product
+        and the sum rounded separately, in the JAX package's order."""
+        bias = a.get("bias")
+        accf = acc.to(torch.float32)
+        if "out_scale" in a:
+            out_s = _f32(a["out_scale"], accf)
+            y = accf * (scale / out_s)
+            if bias is not None:
+                y = y + bias / out_s
+            if activation == "relu":
+                y = torch.clamp(y, min=0.0)
+            elif activation == "relu6":
+                y = torch.clamp(y, 0.0, 6.0 / a["out_scale"])
+            elif activation is not None:
+                raise ValueError(
+                    f"unsupported activation {activation!r} on an "
+                    "int8-output layer")
+            return Int8Tensor(_to_int8(y), a["out_scale"])
+        y = accf * scale
+        if bias is not None:
+            y = y + bias
+        y = L.apply_activation(y, activation)
+        return self._store(y) if store else y
+
     def conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
                 activation=None, name, groups=1, dilation=1):
         a = self.layers[name]
+        if "kernel_int8" in a:
+            x_q, in_s = self._int8_in(x, a)
+            acc = L.conv2d_int8(x_q, a["kernel_int8"], _pair(stride), padding,
+                                groups=groups, dilation=_pair(dilation))
+            return self._int8_out(acc, a["w_scale"] * in_s, a, activation)
         y = L.conv2d(self._f(x).to(self.compute_dtype), a["kernel"],
                      _pair(stride), padding, groups=groups,
                      dilation=_pair(dilation))
@@ -468,6 +736,11 @@ class PackedBuilder(_Base):
     def depthwise_conv_bn(self, x, ksize, *, stride=1, activation=None,
                           name):
         a = self.layers[name]
+        if "kernel_int8" in a:
+            x_q, in_s = self._int8_in(x, a)
+            acc = L.depthwise_conv2d_int8(x_q, a["kernel_int8"],
+                                          _pair(stride))
+            return self._int8_out(acc, a["w_scale"] * in_s, a, activation)
         y = L.depthwise_conv2d(self._f(x).to(self.compute_dtype), a["kernel"],
                                _pair(stride))
         y = y + a["bias"]
@@ -482,6 +755,10 @@ class PackedBuilder(_Base):
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
                        pad_value=1, name, groups=1, dilation=1):
+        if isinstance(x, Int8Tensor):
+            # Signs are read straight off the int8 values (bit = v < 0,
+            # exact at zero point 0): no dequantisation pass.
+            x = x.values
         a = self.layers[name]
         params = BConv2DParams(
             channels_in=int(a["channels_in"]),
@@ -509,10 +786,22 @@ class PackedBuilder(_Base):
                 filters)
 
         x = self._f(x)
+        if "out_scale" in a:
+            # int8-output binary conv: the requantisation is folded into the
+            # transform and the GEMM's int8 epilogue writes int8, which flows
+            # on as an Int8Tensor. Taken before the block kernel is asked.
+            tr8 = OutputTransform(
+                clamp_min=transform.clamp_min, clamp_max=transform.clamp_max,
+                multiplier=a["int8_multiplier"], bias=a["int8_bias"])
+            return Int8Tensor(
+                bconv2d(quantize(x), pf, tr8, params, output_kind="int8",
+                        gemm=self.gemm), a["out_scale"])
         upf = a.get("filter_pm1")
         kh, kw = _pair(ksize)
-        if residual_block_supported(x.shape, params, filters, kh, kw,
-                                    has_residual=False):
+        # The block kernel reads bfloat16 or float32 activations; int8
+        # values (ranges given for some layers only) take the GEMM.
+        if x.is_floating_point() and residual_block_supported(
+                x.shape, params, filters, kh, kw, has_residual=False):
             if x.shape[-1] == filters:
                 return _DeferredBConv(x, pf, transform, params,
                                       self.residual_block, upf)
@@ -523,6 +812,8 @@ class PackedBuilder(_Base):
                                    output_kind="float", gemm=self.gemm))
 
     def binary_dense_bn(self, x, units, *, name):
+        if isinstance(x, Int8Tensor):
+            x = x.values  # v < 0 is the sign at zero point 0
         a = self.layers[name]
         float_out = dict(multiplier=a["multiplier"], bias=a["bias"],
                          clamp_min=int(a["clamp_min"]),
@@ -541,6 +832,11 @@ class PackedBuilder(_Base):
 
     def dense(self, x, units, *, use_bias=True, activation=None, name):
         a = self.layers[name]
+        if "kernel_int8" in a:
+            x_q, in_s = self._int8_in(x, a)
+            acc = L.dense_int8(x_q, a["kernel_int8"])
+            return self._int8_out(acc, a["w_scale"] * in_s, a, activation,
+                                  store=False)
         y = L.dense(self._f(x).to(self.compute_dtype), a["kernel"])
         if a["bias"] is not None:
             y = y + a["bias"]
@@ -565,11 +861,45 @@ def init_model(spec, seed=0, randomize_bn=False):
     return b.params
 
 
-def convert_model(spec, params):
-    """Float params -> packed artifact layer dict (numpy, as on disk)."""
-    b = ConvertBuilder(params)
+def float_apply(spec, params, x, device="cuda"):
+    """QAT float forward (the oracle) on ``device``, the card by default.
+
+    Gradients flow (``ste_sign`` passes them straight through), so a caller
+    that only evaluates wraps the call in ``torch.no_grad()``."""
+    device = resolve_device(device)
+    return spec.forward(FloatBuilder(params), torch.as_tensor(x).to(device))
+
+
+def convert_model(spec, params, int8_ranges=None, int8_out_ranges=None):
+    """Float params -> packed artifact layer dict (numpy, as on disk).
+
+    ``int8_ranges`` (from ``calibrate_model``) also quantises the listed
+    non-binary layers to int8 weights and activation scales;
+    ``int8_out_ranges`` makes those layers, the listed binary convs and the
+    listed residual adds emit int8 tensors, so that consecutive int8 layers
+    exchange int8 directly (the true-int8 pipeline)."""
+    b = ConvertBuilder(params, int8_ranges=int8_ranges,
+                       int8_out_ranges=int8_out_ranges)
     _trace(spec, b)
     return b.layers
+
+
+def calibrate_model(spec, params, batches, with_outputs=False, device="cuda"):
+    """Record per-layer activation abs-max ranges over calibration batches,
+    running the float forward on ``device`` (the card by default).
+
+    Returns the input-range dict; with ``with_outputs=True`` returns
+    ``(in_ranges, out_ranges)`` for the true-int8 pipeline."""
+    device = resolve_device(device)
+    b = CalibrateBuilder(params)
+    with torch.no_grad():
+        for x in batches:
+            b._add_idx = 0  # the adds' names restart with every forward
+            spec.forward(b, torch.as_tensor(np.asarray(x, np.float32))
+                         .to(device))
+    if with_outputs:
+        return b.ranges, b.out_ranges
+    return b.ranges
 
 
 def prepare_runtime_arrays(layers):
@@ -608,7 +938,11 @@ def packed_apply(spec, layers, x, compute_dtype=torch.bfloat16,
     ``layers`` are artifact layers (numpy) or runtime layers (tensors).
     ``domain="packed"`` chains binary layers through bitpacked activations
     (see ``PackedBuilder``); a model that ends on a binary layer then returns
-    its packed words. ``residual_block`` and ``gemm`` may be
+    its packed words. An artifact converted with int8 ranges runs its int8
+    layers on ``Int8Tensor``s: int8 convs, the int8 ADD, and binary convs
+    that write int8 through the binary GEMM (the residual block kernel never
+    sees an ``Int8Tensor``); a model that ends on an int8 layer is
+    dequantised to float. ``residual_block`` and ``gemm`` may be
     ``binary_residual_block_plain`` and ``bgemm_plain`` to run the plain
     versions on the card for comparison.
     """
@@ -623,6 +957,8 @@ def packed_apply(spec, layers, x, compute_dtype=torch.bfloat16,
         out = spec.forward(builder, x)
         if isinstance(out, _BinaryStream):
             out = out.packed()
+        elif isinstance(out, Int8Tensor):
+            out = out.to_float()
         elif isinstance(out, _DeferredBConv):
             out = out.materialize()
     return out

@@ -7,7 +7,8 @@ median window. There is no CPU fallback: without a card it raises.
 
 Usage:
   python -m compute_engine_tpu_torch.runtime.benchmark --model quicknet \
-      --batch 128 [--iters 20] [--repeats 5] [--f32] [--domain packed]
+      --batch 128 [--iters 20] [--repeats 5] [--f32] [--domain packed] \
+      [--int8]
 """
 
 from __future__ import annotations
@@ -21,24 +22,39 @@ import torch
 
 from ..device import resolve_device
 from ..interop import layers_from_numpy
-from ..models import (convert_model, get_model, init_model, packed_apply,
-                      prepare_runtime_arrays)
+from ..models import (calibrate_model, convert_model, get_model, init_model,
+                      packed_apply, prepare_runtime_arrays)
 
 
 def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
                     repeats=5, seed=0, compute_dtype=torch.bfloat16,
-                    device="cuda", domain="float"):
+                    device="cuda", domain="float", int8_pipeline=False):
     """Latency and images/s of ``packed_apply`` at ``batch`` on the card.
 
     Weights are random from ``seed`` (``init_model(randomize_bn=True)``).
     ``domain="packed"`` chains binary layers through bitpacked activations
-    (BinaryAlexNet's conv2-5 and fc1 run bitpacked in and out)."""
+    (BinaryAlexNet's conv2-5 and fc1 run bitpacked in and out).
+
+    ``int8_pipeline`` times the true-int8 execution mode: the model is
+    calibrated on two random batches of 8 (from ``seed + 1``) and converted
+    with input and output ranges, so non-binary layers run in int8, binary
+    convs write int8 through the binary GEMM's epilogue, and the calibrated
+    residual adds run as int8 ADDs."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("benchmark_model times the card; it has no CPU mode")
     spec = get_model(model) if isinstance(model, str) else model
+    params = init_model(spec, seed=seed, randomize_bn=True)
+    ranges = {}
+    if int8_pipeline:
+        crng = np.random.default_rng(seed + 1)
+        in_r, out_r = calibrate_model(
+            spec, params,
+            [crng.normal(0, 1, (8, *spec.input_size, 3)).astype(np.float32)
+             for _ in range(2)], with_outputs=True, device=device)
+        ranges = {"int8_ranges": in_r, "int8_out_ranges": out_r}
     layers = layers_from_numpy(prepare_runtime_arrays(convert_model(
-        spec, init_model(spec, seed=seed, randomize_bn=True))), device)
+        spec, params, **ranges)), device)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(0, 1, (batch, *spec.input_size, 3))
                          .astype(np.float32)).to(device)
@@ -71,6 +87,7 @@ def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
         "batch": batch,
         "compute_dtype": str(compute_dtype).replace("torch.", ""),
         "domain": domain,
+        "int8_pipeline": int8_pipeline,
         "device": torch.cuda.get_device_name(device),
         "first_call_s": first_call_s,
         "latency_ms_p50": p50,
@@ -94,12 +111,15 @@ def main(argv=None):
     p.add_argument("--domain", default="float", choices=["float", "packed"],
                    help="packed: chain binary layers through bitpacked "
                         "activations")
+    p.add_argument("--int8", action="store_true",
+                   help="true-int8 pipeline (calibrated; int8 stream, int8 "
+                        "residual adds)")
     args = p.parse_args(argv)
     print(json.dumps(benchmark_model(
         model=args.model, batch=args.batch, iters=args.iters,
         warmup=args.warmup, repeats=args.repeats, seed=args.seed,
         compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
-        domain=args.domain)))
+        domain=args.domain, int8_pipeline=args.int8)))
 
 
 if __name__ == "__main__":

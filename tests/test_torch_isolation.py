@@ -44,6 +44,44 @@ def test_port_imports_no_jax():
     assert bad.strip() == "[]"
 
 
+@pytest.mark.parametrize("name", [
+    "FloatBuilder", "CalibrateBuilder", "ConvertBuilder", "PackedBuilder",
+    "Int8Tensor", "float_apply", "calibrate_model", "convert_model"])
+def test_models_export_the_int8_pipeline(name):
+    """The names the JAX package's ``models`` exports for the int8 pipeline,
+    each defined in the port's own builder module."""
+    import compute_engine_tpu_torch.models as models
+
+    assert name in models.builder.__all__
+    assert getattr(models, name).__module__ == (
+        "compute_engine_tpu_torch.models.builder")
+
+
+def test_port_sources_name_no_jax_import():
+    """No source of the port, chip_smoke.py included, has an import of jax
+    or of the JAX package (the subprocess test above shows it at run time;
+    this one also reaches imports inside functions)."""
+    import ast
+
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               "compute_engine_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 25
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not {"jax", "jaxlib", "compute_engine_tpu"} & set(roots), (
+                path, node.lineno)
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -69,6 +107,10 @@ def test_entry_points_raise_without_card():
         benchmark_model(spec, batch=1)
     with pytest.raises(ValueError, match="no CPU mode"):
         benchmark_model(spec, batch=1, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark_model(spec, batch=1, int8_pipeline=True)
+    with pytest.raises(ValueError, match="no CPU mode"):
+        benchmark_model(spec, batch=1, int8_pipeline=True, device="cpu")
 
 
 def _block_args(device):

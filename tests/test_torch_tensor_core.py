@@ -292,6 +292,26 @@ def test_bgemm_plan(m, kw, n, block_kw, tile, grid):
         assert plan["blocks"] >= bgemm_mod.SM_COUNT or block_kw < kw
 
 
+@pytest.mark.parametrize("index,m,kw,n,grid", [
+    (0, 401408, 18, 64, (3136, 1, 1)), (1, 100352, 36, 128, (784, 2, 1)),
+    (2, 25088, 72, 256, (196, 4, 1)), (3, 6272, 144, 512, (49, 8, 1))])
+def test_bgemm_plan_at_the_int8_pipeline_shapes(index, m, kw, n, grid):
+    """QuickNet's binary convs at batch 128 in the int8 pipeline: one pass
+    over K in the large tile, every SM busy, and a bound that counts one
+    byte per int8 output and is set by bytes."""
+    smoke = _chip_smoke()
+    assert smoke.QUICKNET_INT8_GEMMS[index][1:] == (m, kw, n)
+    plan = plan_bgemm(m, n, kw, min(kw, bgemm_mod.MAX_BLOCK_KW))
+    _check_plan(plan, ("quicknet int8", index))
+    assert plan["tile"] == (128, 64) and plan["grid"] == grid
+    assert plan["blocks"] >= bgemm_mod.SM_COUNT
+    nbytes, ops = smoke.gemm_work(m, kw, n, "int8")
+    assert nbytes == 4 * m * kw + 4 * n * kw + 8 * n + m * n
+    assert nbytes < smoke.gemm_work(m, kw, n, "float")[0]
+    assert ops == 2 * m * n * 32 * kw
+    assert smoke.bound(nbytes, ops)[1] == "bytes"
+
+
 def test_build_target_changes_with_a_shared_header(tmp_path, monkeypatch):
     """A source is rebuilt when any header under csrc/ changes."""
     csrc = tmp_path / "csrc"
