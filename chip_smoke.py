@@ -68,6 +68,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against its time before the tensor-core redesign (a constant, with its
    card), and the run fails if a main-path shape is slower than that.
 
+5. The serving path (``--serve-only`` builds, runs this phase alone and
+   stops), QuickNet at full width and depth, batch 128:
+   - artifact: the graph program of ``tests/fixtures/
+     torch_quicknet_graph_program.json`` (the machine with the card has no
+     TensorFlow to import a Keras graph with) -> ``spec_from_program`` ->
+     ``init_model`` -> ``convert_model`` -> ``save_artifact`` with the program
+     in the header; ``Interpreter(artifact_path=)`` with no model named: 16
+     block launches, probabilities ``torch.equal`` to the zoo QuickNet's
+     ``Interpreter`` on the same weights (carried across by position);
+   - cli: ``python3 -m compute_engine_tpu_torch.converter.cli --model quicknet
+     --seed 0 --int8-calib-batches 2`` in a subprocess on the card; its
+     artifact's forward counts 16 bgemm launches and no block launch;
+   - serve: ``ServingEngine`` over that ``Interpreter``: 512 float32 requests
+     in full batches (each result equal to its row of the direct forward, 4
+     batches, 0 padded slots, 64 block launches); 300 requests from 8 threads
+     in bursts (top-1 of each against a direct forward, the stats' sums); an
+     ``infer_fn`` that raises once fails that batch's requests only; a uint8
+     engine refuses a float32 request; 256 requests through the CLI's int8
+     artifact (equal to the direct forward, 32 bgemm launches);
+   - ``evaluate`` over synthetic batches, ``detection_postprocess`` on the
+     card against itself on the CPU, ``native_bitpack`` against numpy;
+   - times: requests/s, request latency p50/p99, batch fill and the split of a
+     served batch (host stack, host->device, forward, device->host) for
+     float32 and uint8 requests, ``benchmark_model``'s images/s beside them.
+
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA device, or outside a checkout of the repo.
@@ -135,6 +160,7 @@ EDGE_GEMMS = [
     ("N = 1000", 128, 128, 1000, "float"),
     ("N = 1000", 3000, 75, 1000, "bitpacked"),
 ]
+SERVE_BATCH = 128  # the served batch; requests come in multiples of it
 SPLITK_BLOCK_KW = 32  # forces 3 blocks of K at KW = 77, the last ragged
 
 
@@ -517,6 +543,385 @@ def max_abs_diff(got, want):
     return (got.double() - want.double()).abs().max().item()
 
 
+def percentile(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q / 100 * len(values)))]
+
+
+def serve(engine, images, submitters=1, burst=None, seed=0):
+    """Submit ``images`` to ``engine`` and wait for every result: in order
+    from one thread, or, with ``burst=(most images, longest pause in s)``, in
+    random bursts from ``submitters`` threads, image ``i`` by thread ``i %
+    submitters``. Returns the results in the images' order, each request's
+    latency (submit to resolved, s) and the wall time of the whole run."""
+    import threading
+
+    import numpy as np
+
+    n = len(images)
+    futures, submitted, resolved = [None] * n, [0.0] * n, [0.0] * n
+
+    def note(i):
+        return lambda fut: resolved.__setitem__(i, time.perf_counter())
+
+    def submitter(t):
+        rng = np.random.default_rng(seed + t)
+        mine = list(range(t, n, submitters))
+        while mine:
+            k = int(rng.integers(1, burst[0] + 1)) if burst else len(mine)
+            for i in mine[:k]:
+                submitted[i] = time.perf_counter()
+                futures[i] = engine.submit(images[i])
+                futures[i].add_done_callback(note(i))
+            mine = mine[k:]
+            if burst and mine:
+                time.sleep(float(rng.uniform(0, burst[1])))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(submitters)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "a submitter hangs")
+    results = [f.result(timeout=600) for f in futures]
+    wall = max(resolved) - t0
+    return results, [r - s for r, s in zip(resolved, submitted)], wall
+
+
+def serving_phase(root, dev, card, bench_images_per_s):
+    """Phase 5: convert -> self-contained artifact -> Interpreter ->
+    ServingEngine, with the CLI, evaluate, detection and the native host
+    library. Returns the launch counts of its paths."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.converter import (save_artifact,
+                                                    spec_from_program)
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block)
+    from compute_engine_tpu_torch.models import (convert_model, get_model,
+                                                 init_model)
+    from compute_engine_tpu_torch.ops import detection_postprocess
+    from compute_engine_tpu_torch.runtime import Interpreter
+    from compute_engine_tpu_torch.runtime.evaluate import (evaluate,
+                                                           synthetic_batches)
+    from compute_engine_tpu_torch.runtime.serving import ServingEngine
+    from compute_engine_tpu_torch.utils.native import get_lib, native_bitpack
+
+    def reset():
+        binary_residual_block.launches = 0
+        bgemm.launches = bgemm.splitk_launches = 0
+
+    def counts():
+        return (binary_residual_block.launches, bgemm.launches,
+                bgemm.splitk_launches)
+
+    B = SERVE_BATCH
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    rng = np.random.default_rng(5)
+
+    # artifact: the committed graph program -> a self-contained artifact.
+    t0 = time.perf_counter()
+    with open(os.path.join(root, "tests", "fixtures",
+                           "torch_quicknet_graph_program.json")) as f:
+        fixture = json.load(f)
+    gspec = spec_from_program(fixture["program"],
+                              input_size=fixture["input_size"],
+                              num_classes=fixture["num_classes"],
+                              name="quicknet_graph")
+    glayers = convert_model(gspec, init_model(gspec, seed=0,
+                                              randomize_bn=True))
+    check(list(glayers) == [name for name, _ in fixture["params"]],
+          "the program's layers are not the fixture's, in its order")
+    path = os.path.join(tmp, "quicknet_graph.npz")
+    save_artifact(path, glayers, gspec.name, {
+        "source": "random(seed=0)", "int8": False,
+        "input_size": fixture["input_size"],
+        "num_classes": fixture["num_classes"],
+        "graph_program": fixture["program"]})
+    del gspec, glayers
+    interp = Interpreter(artifact_path=path, device=dev)  # only the path from here on
+    check(interp.spec.name == "quicknet_graph"
+          and interp.spec.forward.program["ops"] == fixture["program"]["ops"],
+          "the interpreter's spec is not the artifact's program")
+    # The zoo's QuickNet from the same seed draws the same weights in the
+    # same order; hold them equal by position, then the outputs.
+    zoo = get_model("quicknet")
+    zlayers = convert_model(zoo, init_model(zoo, seed=0, randomize_bn=True))
+    zinterp = Interpreter(zoo, zlayers, device=dev)
+    check(len(zlayers) == len(interp.layers), "layer counts differ")
+    for zname, gname in zip(zinterp.layers, interp.layers):
+        for key, zv in zinterp.layers[zname].items():
+            gv = interp.layers[gname][key]
+            if isinstance(zv, tuple):  # a list once it has been in a file
+                zv, gv = list(zv), list(gv)
+            # The program applies an activation as an op of its own.
+            same = (torch.equal(zv, gv) if isinstance(zv, torch.Tensor)
+                    else key == "activation" or zv == gv)
+            check(same, f"{zname}/{key} != {gname}/{key}")
+    print(f"[artifact] program ({len(fixture['program']['ops'])} ops) -> "
+          f"init + convert + save + load {time.perf_counter() - t0:.2f} s, "
+          f"{os.path.getsize(path)} bytes", flush=True)
+    xb = rng.normal(0, 1, (B, *interp.spec.input_size, 3)).astype(
+        np.float32)
+    reset()
+    probs = interp(xb)
+    torch.cuda.synchronize()
+    launches["artifact"] = counts()
+    check(launches["artifact"] == (16, 0, 0), "artifact forward: 16 block "
+          f"launches and no bgemm launch, got {launches['artifact']}")
+    zprobs = zinterp(xb)
+    check(tuple(probs.shape) == (B, 1000)
+          and bool(torch.isfinite(probs).all()), "artifact forward's output")
+    check(torch.equal(probs, zprobs), "the self-contained artifact's "
+          "probabilities differ from the zoo model's on the same weights "
+          f"(max |diff| {max_abs_diff(probs, zprobs)})")
+    print("[artifact] Interpreter(artifact_path=) with no model: "
+          f"{launches['artifact'][0]} block launches, probabilities equal to "
+          f"the zoo QuickNet's on the same weights ({TOLERANCE})", flush=True)
+    del zinterp, zlayers
+
+    # cli: the converter's command line, calibrating on the card.
+    path8 = os.path.join(tmp, "quicknet_int8.npz")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "compute_engine_tpu_torch.converter.cli",
+         "--model", "quicknet", "--output", path8, "--seed", "0",
+         "--int8-calib-batches", "2", "--device", str(dev)], cwd=root, capture_output=True,
+        text=True, timeout=600)
+    check(cli.returncode == 0, f"the CLI exited {cli.returncode}: "
+          f"{cli.stderr[-2000:]}")
+    said = json.loads(cli.stdout.strip().splitlines()[-1])
+    check(said == {"model": "quicknet", "output": path8, "layers": 39,
+                   "binary_layers": 16, "packed_weight_bytes": 1566720,
+                   "int8": True}, f"the CLI's JSON line: {said}")
+    interp8 = Interpreter(artifact_path=path8, device=dev)
+    reset()
+    probs8 = interp8(xb)
+    torch.cuda.synchronize()
+    launches["cli_int8_artifact"] = counts()
+    check(launches["cli_int8_artifact"] == (0, 16, 0), "int8 artifact "
+          "forward: 16 bgemm launches and no block launch, got "
+          f"{launches['cli_int8_artifact']}")
+    check(tuple(probs8.shape) == (B, 1000)
+          and bool(torch.isfinite(probs8).all()), "int8 artifact's output")
+    print(f"[cli] converter.cli --int8-calib-batches 2 in a subprocess "
+          f"{time.perf_counter() - t0:.2f} s: {json.dumps(said)}; its "
+          f"artifact's forward: {launches['cli_int8_artifact'][1]} bgemm "
+          "launches, 0 block launches", flush=True)
+
+    # serve (full batches): 512 float32 requests, in order, one thread.
+    images = rng.normal(0, 1, (4 * B, *interp.spec.input_size, 3)).astype(
+        np.float32)
+    reset()
+    with ServingEngine(interp, batch_size=B, max_delay_ms=5000) as eng:
+        served, _, _ = serve(eng, images)
+    launches["serve_full"] = counts()
+    stats = eng.stats
+    check((stats.requests, stats.batches, stats.padded_slots) == (4 * B, 4, 0),
+          f"full-batch serve: {stats}")
+    check(launches["serve_full"] == (64, 0, 0), "full-batch serve: 64 block "
+          f"launches, got {launches['serve_full']}")
+    direct = np.concatenate([interp(images[i:i + B]).cpu().numpy()
+                             for i in range(0, 4 * B, B)])
+    served = np.stack(served)
+    equal_rows = int((served == direct).all(-1).sum())
+    print(f"[serve] full batches: {4 * B} requests in {stats.batches} batches, "
+          f"{stats.padded_slots} padded slots, {launches['serve_full'][0]} "
+          f"block launches; rows equal to the direct forward's "
+          f"({TOLERANCE}): {equal_rows}/{4 * B}, max |dprob| "
+          f"{np.abs(served - direct).max():.3g}", flush=True)
+    check(equal_rows == 4 * B, "a served row differs from the direct forward")
+
+    # serve (ragged, concurrent): 8 threads, bursts, max_delay 5 ms.
+    reset()
+    n_r = 300 * B // 128
+    with ServingEngine(interp, batch_size=B, max_delay_ms=5) as eng:
+        ragged, lat_r, wall_r = serve(eng, images[:n_r], submitters=8,
+                                      burst=(12, 0.03))
+    launches["serve_ragged"] = counts()
+    stats = eng.stats
+    check(stats.requests == n_r and stats.requests + stats.padded_slots
+          == B * stats.batches, f"ragged serve: {stats}")
+    check(launches["serve_ragged"] == (16 * stats.batches, 0, 0),
+          f"ragged serve: 16 block launches a batch, got "
+          f"{launches['serve_ragged']} for {stats.batches} batches")
+    padded = np.concatenate([images[:n_r],
+                             np.zeros_like(images[:3 * B - n_r])])
+    direct_r = np.concatenate([interp(padded[i:i + B]).cpu().numpy()
+                               for i in range(0, 3 * B, B)])[:n_r]
+    ragged = np.stack(ragged)
+    agree = int((ragged.argmax(-1) == direct_r.argmax(-1)).sum())
+    equal_rows = int((ragged == direct_r).all(-1).sum())
+    print(f"[serve] ragged: {n_r} requests from 8 threads in {stats.batches} "
+          f"batches, mean batch fill {stats.mean_batch_fill:.4f}, "
+          f"{n_r / wall_r:.1f} requests/s, latency p50 "
+          f"{percentile(lat_r, 50) * 1e3:.2f} ms p99 "
+          f"{percentile(lat_r, 99) * 1e3:.2f} ms; top-1 agreement with the "
+          f"direct forward in zero-padded batches {agree}/{n_r}, rows equal "
+          f"bit for bit {equal_rows}/{n_r}, max |dprob| "
+          f"{np.abs(ragged - direct_r).max():.3g} [{card}]", flush=True)
+    check(agree == n_r, f"ragged serve: top-1 agreement {agree}/{n_r}")
+
+    # An infer_fn that raises once fails that batch's requests and no other.
+    class Flaky:
+        device = interp.device
+        failed = False
+
+        def __call__(self, batch):
+            if not self.failed:
+                self.failed = True
+                raise RuntimeError("injected failure")
+            return interp(batch)
+
+    with ServingEngine(Flaky(), batch_size=4, max_delay_ms=2000) as eng:
+        first = [eng.submit(img) for img in images[:4]]
+        errors = [f.exception(timeout=600) for f in first]
+        later = [eng.submit(img) for img in images[:4]]
+        answers = np.stack([f.result(timeout=600) for f in later])
+    check(all(isinstance(e, RuntimeError) and "injected" in str(e)
+              for e in errors), f"the failing batch's futures: {errors}")
+    check((eng.stats.requests, eng.stats.batches) == (4, 1)
+          and (answers.argmax(-1) == direct[:4].argmax(-1)).all(),
+          "requests after a failed batch are not answered")
+    # A uint8 engine refuses a float32 request.
+    interp_u8 = Interpreter(artifact_path=path, input_scale=1 / 127.5,
+                            input_zero_point=127, device=dev)
+    images_u8 = rng.integers(0, 256, images.shape).astype(np.uint8)
+    refused = False
+    with ServingEngine(interp_u8, batch_size=B, max_delay_ms=5) as eng:
+        got_u8 = eng.predict(images_u8[0], timeout=600)
+        try:
+            eng.submit(images[0])
+        except TypeError:
+            refused = True
+    want_u8 = interp(((images_u8[:1].astype(np.float32) - 127.0)
+                      * np.float32(1 / 127.5)))[0].cpu().numpy()
+    check(refused, "the uint8 engine took a float32 request")
+    check(got_u8.argmax() == want_u8.argmax(), "the uint8 request's answer")
+    print("[serve] an infer_fn that raises once fails its batch's 4 futures "
+          "and later requests are answered; the uint8 engine refuses a "
+          "float32 request with TypeError", flush=True)
+
+    # serve (int8 artifact): 256 requests through the CLI's artifact.
+    reset()
+    with ServingEngine(interp8, batch_size=B, max_delay_ms=5000) as eng:
+        served8, _, _ = serve(eng, images[:2 * B])
+    launches["serve_int8_artifact"] = counts()
+    direct8 = np.concatenate([interp8(images[i:i + B]).cpu().numpy()
+                              for i in (0, B)])
+    check((eng.stats.requests, eng.stats.batches, eng.stats.padded_slots)
+          == (2 * B, 2, 0) and launches["serve_int8_artifact"] == (0, 32, 0),
+          f"int8 serve: {eng.stats}, {launches['serve_int8_artifact']}")
+    check(np.array_equal(np.stack(served8), direct8),
+          "int8 serve: a served row differs from the direct forward")
+    print(f"[serve] int8 artifact: {2 * B} requests in 2 batches, "
+          f"{launches['serve_int8_artifact'][1]} bgemm launches, rows equal "
+          f"to the direct forward's ({TOLERANCE})", flush=True)
+
+    # times: full batches and ragged, float32 and uint8 requests.
+    def timed(name, interpreter, reqs, **how):
+        full = not how
+        with ServingEngine(interpreter, batch_size=B,
+                           max_delay_ms=5000 if full else 5) as eng:
+            serve(eng, reqs[:B])  # pins the buffer, warms the forward
+            before = dataclasses.replace(eng.stats)
+            _, lat, wall = serve(eng, reqs, **how)
+        d = {f.name: getattr(eng.stats, f.name) - getattr(before, f.name)
+             for f in dataclasses.fields(eng.stats)}
+        fill = d["requests"] / (d["requests"] + d["padded_slots"])
+        per = {k: d[k] / d["batches"]
+               for k in ("stack_ms", "h2d_ms", "forward_ms", "d2h_ms")}
+        print(f"[serve-time] {name}: {len(reqs)} requests, "
+              f"{len(reqs) / wall:.1f} requests/s, latency p50 "
+              f"{percentile(lat, 50) * 1e3:.2f} ms p99 "
+              f"{percentile(lat, 99) * 1e3:.2f} ms, {d['batches']} batches, "
+              f"mean batch fill {fill:.4f}; per batch: host stack "
+              f"{per['stack_ms']:.3f} ms, host->device {per['h2d_ms']:.3f} "
+              f"ms, forward {per['forward_ms']:.3f} ms, device->host "
+              f"{per['d2h_ms']:.3f} ms; benchmark_model in this run "
+              f"{bench_images_per_s:.1f} images/s [{card}]", flush=True)
+
+    many = np.concatenate([images, images])
+    many_u8 = np.concatenate([images_u8, images_u8])
+    timed("full batches, float32 requests", interp, many)
+    timed("full batches, uint8 requests", interp_u8, many_u8)
+    timed("ragged (8 threads, bursts), float32 requests", interp, images,
+          submitters=8, burst=(12, 0.03))
+    timed("ragged (8 threads, bursts), uint8 requests", interp_u8, images_u8,
+          submitters=8, burst=(12, 0.03))
+    del many, many_u8
+
+    # evaluate.
+    res = evaluate(interp.predict, synthetic_batches(4, B))
+    check(res["images"] == 4 * B and res["top5"] >= res["top1"],
+          f"evaluate: {res}")
+    print(f"[evaluate] 4 synthetic batches of {B} through "
+          f"Interpreter.predict: {json.dumps(res)} [{card}]", flush=True)
+
+    # detection: the card against the CPU, fast and regular NMS.
+    drng = np.random.default_rng(6)
+    n_anchors, n_classes = 1917, 20
+    anchors = torch.from_numpy(np.stack(
+        [drng.uniform(0.1, 0.9, n_anchors), drng.uniform(0.1, 0.9, n_anchors),
+         drng.uniform(0.1, 0.4, n_anchors), drng.uniform(0.1, 0.4, n_anchors)],
+        axis=-1).astype(np.float32))
+    raw = torch.from_numpy(drng.normal(0, 1, (4, n_anchors, 4))
+                           .astype(np.float32))
+    scores = torch.from_numpy(drng.uniform(0, 1, (4, n_anchors, n_classes))
+                              .astype(np.float32))
+    for regular in (False, True):
+        kw = dict(max_detections=10, iou_threshold=0.5, score_threshold=0.3,
+                  use_regular_nms=regular)
+        want = detection_postprocess(raw, scores, anchors, **kw)
+        t0 = time.perf_counter()
+        got = detection_postprocess(raw.to(dev), scores.to(dev),
+                                    anchors.to(dev), **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(all(g.is_cuda for g in got), "detection ran off the card")
+        got = [g.cpu() for g in got]
+        check(torch.allclose(got[0], want[0], atol=1e-5, rtol=0)
+              and torch.equal(got[1], want[1])
+              and torch.allclose(got[2], want[2], atol=1e-6, rtol=0)
+              and torch.equal(got[3], want[3]) and int(want[3].min()) > 0,
+              f"detection_postprocess (regular NMS {regular}): card != CPU")
+        print(f"[detection] 4 x {n_anchors} anchors x {n_classes} classes, "
+              f"{'regular' if regular else 'fast'} NMS: the card equals the "
+              f"CPU (boxes atol 1e-5, classes and counts equal), "
+              f"{int(want[3].sum())} detections, first call {ms:.1f} ms",
+              flush=True)
+
+    # native: the host library against numpy.
+    check(get_lib() is not None, "the native host library did not build "
+          "(is g++ installed?)")
+
+    def numpy_pack(bits):
+        pad = -bits.shape[-1] % 32
+        bits = np.pad(bits, [(0, 0)] * (bits.ndim - 1) + [(0, pad)])
+        return np.packbits(bits, axis=-1, bitorder="little").view("<u4")
+
+    xf = drng.normal(0, 1, (64, 56, 100)).astype(np.float32)
+    xi = drng.integers(-128, 128, (64, 56, 100), dtype=np.int8)
+    check(np.array_equal(native_bitpack(xf), numpy_pack(xf < 0))
+          and np.array_equal(native_bitpack(xi, 3), numpy_pack(xi < 3)),
+          "native_bitpack != numpy")
+    print("[native] libce_host built with g++; native_bitpack equals numpy "
+          "for float32 and for int8 with a zero point (64x56x100)",
+          flush=True)
+    import shutil
+
+    shutil.rmtree(tmp)
+    return launches
+
+
 def main():
     import torch
 
@@ -574,6 +979,12 @@ def main():
     rng8 = np.random.default_rng(8)
     if "--kernel-times" in args:
         kernel_times(rng, dev, card)
+        return 0
+    if "--serve-only" in args:
+        bench = benchmark_model("quicknet", batch=128, iters=10, warmup=3,
+                                repeats=5, device=dev)
+        print(json.dumps({"launches_by_path": serving_phase(
+            root, dev, card, bench["images_per_sec"])}))
         return 0
 
     # 2. Kernel against its plain version.
@@ -954,6 +1365,9 @@ def main():
           f"{int8_per_forward('plain_ms'):.4f} ms, torch._int_mm "
           f"{int8_per_forward('library_ms'):.4f} ms, bound {int8_bound:.4f} "
           f"ms ({int8_bound_by}) [{card}]", flush=True)
+    # 5. The serving path.
+    served = serving_phase(root, dev, card, bench["images_per_sec"])
+
     kernels = [{
         "name": "residual_block",
         "route": "cuda",
@@ -967,6 +1381,7 @@ def main():
         "bound_by": bound_by,
         "library_ms": per_forward("library_ms"),
         "per": "one QuickNet batch-128 forward (16 launches)",
+        "launches_by_path": {k: v[0] for k, v in served.items()},
         "shapes": shapes,
     }, {
         "name": "bgemm",
@@ -997,6 +1412,7 @@ def main():
         "library_ms": int8_per_forward("library_ms"),
         "per": "one QuickNet batch-128 forward in the int8 pipeline (16 "
                "launches of the same kernel with its int8 epilogue)",
+        "launches_by_path": {k: v[1] for k, v in served.items()},
         "shapes": int8_shapes,
     }, {
         "name": "bgemm_splitk",
@@ -1016,6 +1432,9 @@ def main():
         "shapes": [splitk],
     }]
     print(json.dumps({"mma_rates": mma_rates}))
+    # (block, bgemm, split-K) launches of each path of phase 5, counted from
+    # 0 just before the path to just after it.
+    print(json.dumps({"launches_by_path": served}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -65,8 +65,17 @@ def bitpack(x: torch.Tensor, zero_point: int = 0) -> torch.Tensor:
 
 
 def bitpack_np(x, zero_point: int = 0) -> np.ndarray:
-    """Host bitpack on numpy with the same contract; returns ``uint32``."""
+    """Host bitpack on numpy with the same contract; returns ``uint32``.
+
+    float32 and int8 go through the native host library
+    (``utils.native``) where a compiler built it; numpy otherwise."""
     x = np.asarray(x)
+    if x.dtype in (np.float32, np.int8):
+        from ..utils.native import native_bitpack
+
+        out = native_bitpack(x, zero_point)
+        if out is not None:
+            return out
     channels = x.shape[-1]
     n_words = packed_size(channels)
     bits = _bits(x, zero_point, x.dtype == np.bool_,

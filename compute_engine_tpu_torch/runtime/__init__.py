@@ -1,3 +1,3 @@
-"""Inference runtime: Interpreter and benchmark."""
+"""Inference runtime: Interpreter, benchmark, serving, evaluation."""
 
 from .interpreter import Interpreter  # noqa: F401

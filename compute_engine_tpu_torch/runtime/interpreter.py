@@ -26,7 +26,8 @@ class Interpreter:
     Args:
       model: ModelSpec or zoo model name.
       layers: artifact layer dict (from ``convert_model`` or
-        ``load_artifact``); if ``artifact_path`` is given it is loaded.
+        ``load_artifact``); if ``artifact_path`` is given it is loaded,
+        and an artifact that carries its graph program needs no ``model``.
       compute_dtype: dtype of the activation stream between layers.
       input_scale, input_zero_point: take int8/uint8 images directly.
       output_mode: "probs", "logits" or "int8" (needs ``output_scale``).
@@ -42,10 +43,16 @@ class Interpreter:
             name, config, layers = load_artifact(artifact_path)
             if model is None:
                 if isinstance(config, dict) and config.get("graph_program"):
-                    raise NotImplementedError(
-                        "artifacts that carry a graph program need the graph "
-                        "importer, which is not ported yet (ROADMAP A.11)")
-                model = name
+                    # Self-contained artifact: the graph program travels in
+                    # the header beside the packed weights, so no registry
+                    # entry or Python model definition is needed.
+                    from ..converter.graph_import import spec_from_program
+                    model = spec_from_program(
+                        config["graph_program"],
+                        input_size=config["input_size"],
+                        num_classes=config["num_classes"], name=name)
+                else:
+                    model = name
         if isinstance(model, str):
             model = get_model(model)
         if not isinstance(model, ModelSpec) or layers is None:
@@ -100,8 +107,15 @@ class Interpreter:
         return [self.output_zero_point]
 
     def __call__(self, x) -> torch.Tensor:
-        """Forward one batch; returns a tensor on the interpreter's device."""
-        x = torch.as_tensor(np.asarray(x)).to(self.device)
+        """Forward one batch; returns a tensor on the interpreter's device.
+
+        ``x`` is array-like or a tensor (one already on the device is used
+        where it lies). It crosses to the device in its own dtype: int8 or
+        uint8 images for an ``input_scale`` interpreter are widened to
+        float32 on the device, a quarter of the bytes over the bus."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        x = x.to(self.device, non_blocking=True)
         if self.input_scale is not None:
             x = ((x.to(torch.float32) - float(self.input_zero_point))
                  * float(self.input_scale))

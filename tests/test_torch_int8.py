@@ -46,6 +46,8 @@ from compute_engine_tpu_torch.models.zoo import ModelSpec, _quicknet_forward
 from compute_engine_tpu_torch.runtime import Interpreter
 from compute_engine_tpu_torch.runtime.benchmark import benchmark_model
 
+from _torch_parity import tracing_builder
+
 SEED = 9
 
 
@@ -374,33 +376,11 @@ def test_integer_layers_refuse_other_types(fn, args):
 # -- stepwise through PackedBuilder --------------------------------------------
 
 
-def _trace_builder(builder_cls, is_int8, values_of):
-    """A subclass of a PackedBuilder that records, in order, the name and
-    the int8 values of every Int8Tensor a layer method returns."""
-    class Tracing(builder_cls):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.stream = []
-
-    def wrap(method):
-        def traced(self, *a, **kw):
-            out = getattr(builder_cls, method)(self, *a, **kw)
-            if is_int8(out):
-                self.stream.append((kw.get("name", method), values_of(out)))
-            return out
-        return traced
-
-    for method in ("conv_bn", "depthwise_conv_bn", "binary_conv_bn",
-                   "binary_dense_bn", "dense", "add", "max_pool", "flatten"):
-        setattr(Tracing, method, wrap(method))
-    return Tracing
-
-
-JTracing = _trace_builder(JPackedBuilder,
-                          lambda o: isinstance(o, JInt8Tensor),
-                          lambda o: np.asarray(o.values))
-Tracing = _trace_builder(PackedBuilder, lambda o: isinstance(o, Int8Tensor),
-                         lambda o: o.values.numpy())
+JTracing = tracing_builder(JPackedBuilder,
+                           lambda o: isinstance(o, JInt8Tensor),
+                           lambda o: np.asarray(o.values))
+Tracing = tracing_builder(PackedBuilder, lambda o: isinstance(o, Int8Tensor),
+                          lambda o: o.values.numpy())
 
 
 def _t8(values, scale):

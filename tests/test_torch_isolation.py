@@ -27,21 +27,34 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "compute_engine_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "compute_engine_tpu",
+                                    "tensorflow", "keras", "PIL"))
 print(len(names), bad)
+print(sorted(names))
 """
+
+
+NEW_MODULES = ["converter.cli", "converter.graph_import",
+               "converter.keras_import", "ops.detection", "runtime.evaluate",
+               "runtime.health", "runtime.serving", "utils", "utils.native",
+               "utils.profiling"]
 
 
 def test_port_imports_no_jax():
     """Every module of the port (and chip_smoke.py) imports neither jax nor
-    the JAX package. A subprocess, since this process has JAX loaded."""
+    the JAX package, nor TensorFlow or PIL, which the importers and the
+    directory loader import inside the functions that need them. A
+    subprocess, since this process has them loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 22
+    counts, names = out.stdout.strip().splitlines()
+    n_modules, bad = counts.split(" ", 1)
+    assert int(n_modules) >= 32
     assert bad.strip() == "[]"
+    for name in NEW_MODULES:
+        assert f"'compute_engine_tpu_torch.{name}'" in names, name
 
 
 @pytest.mark.parametrize("name", [
@@ -67,7 +80,7 @@ def test_port_sources_name_no_jax_import():
     for root, _, names in os.walk(os.path.join(REPO,
                                                "compute_engine_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 25
+    assert len(files) >= 35
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -111,6 +124,42 @@ def test_entry_points_raise_without_card():
         benchmark_model(spec, batch=1, int8_pipeline=True)
     with pytest.raises(ValueError, match="no CPU mode"):
         benchmark_model(spec, batch=1, int8_pipeline=True, device="cpu")
+
+
+def test_cli_calibration_and_serving_raise_without_card(tmp_path):
+    """The CLI's calibration, and an engine over an interpreter on the card,
+    raise without a card: neither runs its batches on the CPU instead."""
+    _no_card()
+    from compute_engine_tpu_torch.converter.cli import main
+    from compute_engine_tpu_torch.runtime.serving import ServingEngine
+
+    out = tmp_path / "q.npz"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--model", "quicknet_small", "--output", str(out),
+              "--int8-calib-batches", "1"])
+    assert not out.exists()
+    spec = tiny_quicknet(num_classes=4)
+    layers = convert_model(spec, init_model(spec, seed=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(Interpreter(spec, layers), batch_size=2)
+
+    calls = []
+
+    class OnTheCard:
+        """Stands for an interpreter on the card (which cannot be built
+        here): the engine must stage its batch for that device or fail."""
+        device = torch.device("cuda")
+
+        def __call__(self, x):
+            calls.append(x.device)
+            return x
+
+    with ServingEngine(OnTheCard(), batch_size=2, max_delay_ms=1) as eng:
+        fut = eng.submit(np.zeros((4, 4, 3), np.float32))
+        with pytest.raises(Exception):  # torch's own, from the device
+            fut.result(timeout=30)
+    assert calls == []  # no batch reached infer_fn from the CPU
+    assert eng.stats.batches == 0
 
 
 def _block_args(device):

@@ -97,11 +97,15 @@ def test_prepare_runtime_arrays_matches_jax(jax_model, port_layers):
 
 
 def test_runtime_layers_are_contiguous(port_layers):
-    """The CUDA kernel takes contiguous tensors only; the converter's packed
-    filters come from a transpose, so the runtime copy must be C-ordered."""
-    assert not port_layers["section_0_block_0"]["packed_filter"].flags[
-        "C_CONTIGUOUS"]
-    runtime = layers_from_numpy(prepare_runtime_arrays(port_layers))
+    """The CUDA kernel takes contiguous tensors only. The converter's packed
+    filters come from a transpose (numpy's packing keeps its order; the
+    native host library's does not), so the runtime copy must be C-ordered
+    whatever it is given."""
+    layers = {name: dict(entry) for name, entry in port_layers.items()}
+    block = layers["section_0_block_0"]
+    block["packed_filter"] = np.asfortranarray(block["packed_filter"])
+    assert not block["packed_filter"].flags["C_CONTIGUOUS"]
+    runtime = layers_from_numpy(prepare_runtime_arrays(layers))
     for name, entry in runtime.items():
         for k, v in entry.items():
             if isinstance(v, torch.Tensor):
