@@ -93,6 +93,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      served batch (host stack, host->device, forward, device->host) for
      float32 and uint8 requests, ``benchmark_model``'s images/s beside them.
 
+6. Selection, ``kernel=`` and brief training, at full width:
+   - select (``--select-only`` builds and runs this part alone): the
+     planner (``kernels.autotune.plan``/``measure``, table left unchanged)
+     at batch 128 over every binary layer shape of QuickNet and
+     BinaryAlexNet, in each domain and output kind the runtime consults;
+     every candidate's output must equal the GEMM lowering's before it is
+     timed. One ``[select]`` line per shape: each candidate's ms, the winner
+     and the committed table's choice (not gated);
+   - ``kernel=``: QuickNet b128 through ``Interpreter(kernel=k)`` for "auto",
+     "residual", "bgemm", "mxu" and "s2d", packed BinaryAlexNet b128 through
+     ``packed_apply(kernel=k)`` for "auto", "bgemm" and "mxu": top-1 equal to
+     the plain-version forward on 128/128 images, "auto" launching what the
+     committed table says; ``benchmark_model(kernel=k)``'s images/s and the
+     profiler's device-busy time; ``benchmark_model(artifact_path=)`` on
+     phase 5's artifact reports its memory;
+   - train (``--train-only`` alone): QuickNet (224x224, 16 classes on the
+     1000-wide head) trained on the card by the protocol of
+     ``scripts/make_accuracy_fixtures.py`` (250 steps of batch 32, precise
+     BN over 16 batches of 64, calibration on one batch of 32), then the
+     float oracle against the packed float32, bfloat16 and int8 paths over
+     512 images: oracle top-1 >= 0.95, agreement >= 0.99 on every path,
+     dprob p99 <= 0.05 / 0.3 / 0.5. The record is one ``accuracy_224`` JSON
+     line (tests/fixtures/torch_accuracy_224.json holds a copy);
+   - the float32 QuickNet forward (TF32 off in the call) timed beside the
+     bfloat16 one.
+   Phases 3 and 5 gate the launch counts of the "auto" forward at what the
+   committed table chooses (``expected_launches``).
+
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA device, or outside a checkout of the repo.
@@ -102,8 +130,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 tensor-core ops/s.
@@ -177,39 +207,23 @@ def card_line():
 
 
 def time_ms(fn, reps, warm=2, graph=True):
-    """Milliseconds per call of ``fn`` on the card, by CUDA events around
-    ``reps`` calls. The calls are captured into one CUDA graph first and its
-    replay is timed, so that a kernel of a few microseconds is not timed by
-    how fast the host can enqueue it; ``graph=False`` times eager calls."""
-    import torch
+    """Milliseconds per call of ``fn`` on the card: the CUDA-graph replay of
+    ``reps`` calls timed by CUDA events (``runtime.microbench.time_ms``);
+    ``graph=False`` times eager calls."""
+    from compute_engine_tpu_torch.runtime.microbench import time_ms as timed
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
+    return timed(fn, reps, warm=warm, graph=graph)
 
-    def run():
-        for _ in range(reps):
-            fn()
 
-    if graph:
-        captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            run()
-        run = captured.replay
-        run()
-        torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
 def profile_forward(forward, n=3, top=12):
     """Device time per forward by kernel, from a torch.profiler trace of
-    ``n`` forwards (informational: it checks nothing)."""
+    ``n`` forwards (informational: it checks nothing). Prints the ``top``
+    kernels and returns the device-busy ms per forward (None when the
+    profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -229,12 +243,15 @@ def profile_forward(forward, n=3, top=12):
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
         print("[profile] the profiler saw no device time: not measured")
-        return
+        return None
     busy = sum(r[0] for r in rows)
-    print(f"[profile] per forward under the profiler: device busy {busy:.3f} "
-          f"ms of {wall_ms:.3f} ms wall, idle share {1 - busy / wall_ms:.3f}")
+    if top:
+        print(f"[profile] per forward under the profiler: device busy "
+              f"{busy:.3f} ms of {wall_ms:.3f} ms wall, idle share "
+              f"{1 - busy / wall_ms:.3f}")
     for ms, count, name in rows[:top]:
         print(f"[profile] {ms:8.4f} ms {count:5.1f}x {name[:100]}")
+    return busy
 
 
 def block_case(rng, shape, device, dtype, identity, c_out=None):
@@ -590,12 +607,15 @@ def serve(engine, images, submitters=1, burst=None, seed=0):
     return results, [r - s for r, s in zip(resolved, submitted)], wall
 
 
-def serving_phase(root, dev, card, bench_images_per_s):
+def serving_phase(root, dev, card, bench_images_per_s, tmp):
     """Phase 5: convert -> self-contained artifact -> Interpreter ->
     ServingEngine, with the CLI, evaluate, detection and the native host
-    library. Returns the launch counts of its paths."""
+    library. The artifacts go to ``tmp``. Returns the launch counts of its
+    paths and the self-contained artifact's path.
+
+    The (block, bgemm, split-K) launches of a float QuickNet forward are
+    what the committed selection table gives (``expected_launches``)."""
     import dataclasses
-    import tempfile
 
     import numpy as np
     import torch
@@ -624,8 +644,15 @@ def serving_phase(root, dev, card, bench_images_per_s):
 
     B = SERVE_BATCH
     launches = {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     rng = np.random.default_rng(5)
+    qn = expected_launches("quicknet", B)
+
+    def times(k):
+        return tuple(k * v for v in qn)
+
+    print(f"[serve] a float QuickNet batch-{B} forward launches "
+          f"(block, bgemm, split-K) {qn} under the committed table",
+          flush=True)
 
     # artifact: the committed graph program -> a self-contained artifact.
     t0 = time.perf_counter()
@@ -675,8 +702,8 @@ def serving_phase(root, dev, card, bench_images_per_s):
     probs = interp(xb)
     torch.cuda.synchronize()
     launches["artifact"] = counts()
-    check(launches["artifact"] == (16, 0, 0), "artifact forward: 16 block "
-          f"launches and no bgemm launch, got {launches['artifact']}")
+    check(launches["artifact"] == qn, f"artifact forward: {qn} launches "
+          f"expected, got {launches['artifact']}")
     zprobs = zinterp(xb)
     check(tuple(probs.shape) == (B, 1000)
           and bool(torch.isfinite(probs).all()), "artifact forward's output")
@@ -684,8 +711,9 @@ def serving_phase(root, dev, card, bench_images_per_s):
           "probabilities differ from the zoo model's on the same weights "
           f"(max |diff| {max_abs_diff(probs, zprobs)})")
     print("[artifact] Interpreter(artifact_path=) with no model: "
-          f"{launches['artifact'][0]} block launches, probabilities equal to "
-          f"the zoo QuickNet's on the same weights ({TOLERANCE})", flush=True)
+          f"{launches['artifact']} launches (expected {qn}), probabilities "
+          f"equal to the zoo QuickNet's on the same weights ({TOLERANCE})",
+          flush=True)
     del zinterp, zlayers
 
     # cli: the converter's command line, calibrating on the card.
@@ -727,15 +755,16 @@ def serving_phase(root, dev, card, bench_images_per_s):
     stats = eng.stats
     check((stats.requests, stats.batches, stats.padded_slots) == (4 * B, 4, 0),
           f"full-batch serve: {stats}")
-    check(launches["serve_full"] == (64, 0, 0), "full-batch serve: 64 block "
-          f"launches, got {launches['serve_full']}")
+    check(launches["serve_full"] == times(4), f"full-batch serve: "
+          f"{times(4)} launches expected, got {launches['serve_full']}")
     direct = np.concatenate([interp(images[i:i + B]).cpu().numpy()
                              for i in range(0, 4 * B, B)])
     served = np.stack(served)
     equal_rows = int((served == direct).all(-1).sum())
     print(f"[serve] full batches: {4 * B} requests in {stats.batches} batches, "
-          f"{stats.padded_slots} padded slots, {launches['serve_full'][0]} "
-          f"block launches; rows equal to the direct forward's "
+          f"{stats.padded_slots} padded slots, {launches['serve_full']} "
+          f"launches (expected {times(4)}); rows equal to the direct "
+          "forward's "
           f"({TOLERANCE}): {equal_rows}/{4 * B}, max |dprob| "
           f"{np.abs(served - direct).max():.3g}", flush=True)
     check(equal_rows == 4 * B, "a served row differs from the direct forward")
@@ -750,8 +779,8 @@ def serving_phase(root, dev, card, bench_images_per_s):
     stats = eng.stats
     check(stats.requests == n_r and stats.requests + stats.padded_slots
           == B * stats.batches, f"ragged serve: {stats}")
-    check(launches["serve_ragged"] == (16 * stats.batches, 0, 0),
-          f"ragged serve: 16 block launches a batch, got "
+    check(launches["serve_ragged"] == times(stats.batches),
+          f"ragged serve: {qn} launches a batch, got "
           f"{launches['serve_ragged']} for {stats.batches} batches")
     padded = np.concatenate([images[:n_r],
                              np.zeros_like(images[:3 * B - n_r])])
@@ -916,10 +945,294 @@ def serving_phase(root, dev, card, bench_images_per_s):
     print("[native] libce_host built with g++; native_bitpack equals numpy "
           "for float32 and for int8 with a zero point (64x56x100)",
           flush=True)
-    import shutil
+    return launches, path
 
-    shutil.rmtree(tmp)
-    return launches
+
+def expected_launches(model, batch, domain="float", kernel="auto"):
+    """(block, bgemm, split-K) launches of one forward of the zoo ``model``
+    at ``batch`` under ``kernel`` ("auto": what the committed table
+    chooses), summed over the table consultations of ``domain``
+    (``binary_layer_modes``) by the runtime's own dispatch
+    (``select.layer_lowering``, ``select.layer_launches``)."""
+    from compute_engine_tpu_torch.kernels import select
+    from compute_engine_tpu_torch.models import get_model
+    from compute_engine_tpu_torch.models.shapes import binary_layer_modes
+
+    counts = [0, 0, 0]
+    for _, r, dom, out_kind in binary_layer_modes(get_model(model), batch):
+        if dom == domain:
+            low = select.layer_lowering(kernel, r, dom, out_kind)
+            for i, n in enumerate(select.layer_launches(low, r)):
+                counts[i] += n
+    return tuple(counts)
+
+
+def launch_counts():
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block)
+
+    return (binary_residual_block.launches, bgemm.launches,
+            bgemm.splitk_launches)
+
+
+def reset_launches():
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block)
+
+    binary_residual_block.launches = 0
+    bgemm.launches = bgemm.splitk_launches = 0
+
+
+def selection_phase(dev, card):
+    """Phase 6(a): the planner's cells for QuickNet and BinaryAlexNet at
+    batch 128, one per shape and table consultation, measured against an
+    empty table: every candidate lowering passes the exactness gate against
+    the GEMM's output and is timed; the winner is printed beside the
+    committed table's choice (not gated: timings are noisy). The process
+    table is left as it was."""
+    from compute_engine_tpu_torch.kernels import autotune, select
+
+    for cell in autotune.plan(("quicknet", "binary_alexnet"), (128,),
+                              table={}, buckets=False):
+        _, r, _, dom, out_kind = cell
+        ms = autotune.measure(cell, device=dev, update_table=False)
+        ms = {k.split("/")[1]: v for k, v in ms.items()}
+        winner = min(ms, key=ms.get)
+        committed = select.select_bconv2d_kernel(
+            dom, out_kind=out_kind, **select.layer_kwargs(r))
+        print(f"[select] {autotune.cell_label(cell)}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; winner {winner}, committed table {committed}; "
+              f"every candidate equal to the GEMM's output [{card}]",
+              flush=True)
+
+
+def kernel_phase(dev, card, spec, layers, x, x_dev, plain_probs, alex,
+                 alex_layers, xa, plain_alex, artifact):
+    """Phase 6(b): ``kernel=`` on the user's entry points. Each forward's
+    top-1 must equal the plain-version forward's on all 128 images, and
+    "auto" must launch what the committed table says. Device-busy time is
+    the profiler's, of a forward whose input already lies on the card."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.models import packed_apply
+    from compute_engine_tpu_torch.runtime import Interpreter
+    from compute_engine_tpu_torch.runtime.benchmark import benchmark_model
+
+    results = {}
+    plain_top = plain_probs.argmax(-1)
+    for k in ("auto", "residual", "bgemm", "mxu", "s2d"):
+        interp = Interpreter(spec, layers, kernel=k, device=dev)
+        interp.predict(x[:8])  # warm: the first call builds, not counted
+        reset_launches()
+        probs = interp.predict(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        agree = int((probs.argmax(-1) == plain_top).sum())
+        check(np.isfinite(probs).all() and probs.shape == (128, 1000),
+              f"QuickNet kernel={k}: output {probs.shape}")
+        check(agree == 128, f"QuickNet kernel={k}: top-1 agreement with the "
+              f"plain path {agree}/128")
+        if k == "auto":
+            want = expected_launches("quicknet", 128)
+            check(counts == want, f"QuickNet kernel=auto launches {counts}, "
+                  f"the committed table says {want}")
+        b = benchmark_model("quicknet", batch=128, iters=10, warmup=2,
+                            repeats=3, kernel=k, device=dev)
+        busy = profile_forward(lambda: interp(x_dev), top=0)
+        results[f"quicknet/{k}"] = {"launches": counts,
+                                    "images_per_s": b["images_per_sec"],
+                                    "latency_ms": b["latency_ms_p50"],
+                                    "device_busy_ms": busy}
+        print(f"[kernel=] QuickNet b128 Interpreter(kernel={k!r}): "
+              f"(block, bgemm, split-K) launches {counts}, top-1 agreement "
+              f"with the plain path {agree}/128; benchmark_model "
+              f"{b['images_per_sec']:.1f} images/s, p50 "
+              f"{b['latency_ms_p50']:.3f} ms, device busy {ms_text(busy)} "
+              f"per forward [{card}]", flush=True)
+    plain_a = plain_alex.argmax(-1)
+    for k in ("auto", "bgemm", "mxu"):
+        def forward():
+            return packed_apply(alex, alex_layers, xa, kernel=k,
+                                domain="packed")
+        forward()
+        reset_launches()
+        probs = forward()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        agree = int((probs.argmax(-1) == plain_a).sum().item())
+        check(bool(torch.isfinite(probs).all()), f"AlexNet kernel={k}")
+        check(agree == 128, f"packed BinaryAlexNet kernel={k}: top-1 "
+              f"agreement with the plain path {agree}/128")
+        if k == "auto":
+            want = expected_launches("binary_alexnet", 128, "packed")
+            check(counts == want, f"packed BinaryAlexNet kernel=auto "
+                  f"launches {counts}, the committed table says {want}")
+        b = benchmark_model("binary_alexnet", batch=128, iters=10, warmup=2,
+                            repeats=3, kernel=k, domain="packed", device=dev)
+        busy = profile_forward(forward, top=0)
+        results[f"binary_alexnet_packed/{k}"] = {
+            "launches": counts, "images_per_s": b["images_per_sec"],
+            "latency_ms": b["latency_ms_p50"], "device_busy_ms": busy}
+        print(f"[kernel=] packed BinaryAlexNet b128 packed_apply(kernel="
+              f"{k!r}): (block, bgemm, split-K) launches {counts}, top-1 "
+              f"agreement with the plain path {agree}/128; benchmark_model "
+              f"{b['images_per_sec']:.1f} images/s, p50 "
+              f"{b['latency_ms_p50']:.3f} ms, device busy {ms_text(busy)} "
+              f"per forward [{card}]", flush=True)
+    b = benchmark_model(artifact_path=artifact, batch=128, iters=10,
+                        warmup=2, repeats=3, device=dev)
+    mem = {k: b[k] for k in ("weights_mb", "input_mb", "act_peak_mb",
+                             "peak_hbm_mb")}
+    check(all(v > 0 for v in mem.values()) and b["model"] == "quicknet_graph",
+          f"benchmark_model(artifact_path=): {b}")
+    print(f"[kernel=] benchmark_model(artifact_path=) on phase 5's "
+          f"self-contained artifact ({b['model']}): "
+          f"{b['images_per_sec']:.1f} images/s, {json.dumps(mem)} [{card}]",
+          flush=True)
+    results["artifact"] = {"images_per_s": b["images_per_sec"], **mem}
+    return results
+
+
+# The accuracy protocol of scripts/make_accuracy_fixtures.py for QuickNet.
+TRAIN_STEPS, TRAIN_BATCH, N_CLASSES, RECAL_BATCHES = 250, 32, 16, 16
+N_EVAL, EVAL_BATCH, EVAL_SPREAD = 512, 64, 0.35
+ACCURACY_GATES = {"packed_f32": 0.05, "packed_bf16": 0.3, "packed_int8": 0.5}
+
+
+def training_phase(dev, card):
+    """Phase 6(c): QuickNet at full width and depth trained briefly on the
+    card with the fixture protocol, then the float oracle against the packed
+    float32, bfloat16 and true-int8 paths over 512 images, gated as the
+    ``quicknet`` record of tests/test_accuracy_fixtures.py."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.models import (calibrate_model,
+                                                 convert_model, float_apply,
+                                                 get_model, init_model,
+                                                 packed_apply, train_briefly)
+    from compute_engine_tpu_torch.models.train import (clustered_batch,
+                                                       make_prototypes,
+                                                       recalibrate_bn_stats)
+
+    spec = get_model("quicknet")
+    seed = 0
+    protos = make_prototypes(1000 + seed, spec.input_size, N_CLASSES)
+    t0 = time.perf_counter()
+    trained, info = train_briefly(
+        spec, init_model(spec, seed=seed), steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seed=seed, num_classes=N_CLASSES, protos=protos,
+        device=dev)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    check(np.isfinite(info["loss_last"])
+          and info["loss_last"] < info["loss_first"],
+          f"training did not lower the loss: {info}")
+    recal_rng = np.random.default_rng(4000 + seed)
+    trained = recalibrate_bn_stats(
+        spec, trained,
+        [clustered_batch(protos, recal_rng, EVAL_BATCH,
+                         spread=EVAL_SPREAD)[0]
+         for _ in range(RECAL_BATCHES)], device=dev)
+    with torch.no_grad():
+        xs, ys = clustered_batch(protos, np.random.default_rng(17), 128)
+        acc = float((float_apply(spec, trained, xs, device=dev).argmax(-1)
+                     .cpu().numpy() == ys).mean())
+    print(f"[train] QuickNet 224x224, {N_CLASSES} classes: {TRAIN_STEPS} "
+          f"Adam+STE steps of batch {TRAIN_BATCH} on the card, "
+          f"{step_s:.4f} s per step (numpy data included), loss "
+          f"{info['loss_first']:.4f} -> {info['loss_last']:.4f}; oracle "
+          f"accuracy after precise BN {acc:.4f} [{card}]", flush=True)
+    check(acc >= 0.95, f"oracle accuracy {acc} < 0.95 after training")
+
+    layers = convert_model(spec, trained)
+    in_r, out_r = calibrate_model(
+        spec, trained,
+        [clustered_batch(protos, np.random.default_rng(3000 + seed),
+                         TRAIN_BATCH)[0]], with_outputs=True, device=dev)
+    layers8 = convert_model(spec, trained, int8_ranges=in_r,
+                            int8_out_ranges=out_r)
+    rng = np.random.default_rng(2000 + seed)
+    paths = {
+        "packed_f32": lambda x: packed_apply(spec, layers, x,
+                                             compute_dtype=torch.float32),
+        "packed_bf16": lambda x: packed_apply(spec, layers, x),
+        "packed_int8": lambda x: packed_apply(spec, layers8, x),
+    }
+    agree = {k: 0 for k in paths}
+    dprob = {k: [] for k in paths}
+    oracle_acc, first, n = 0, None, 0
+    for _ in range(N_EVAL // EVAL_BATCH):
+        x, y = clustered_batch(protos, rng, EVAL_BATCH, spread=EVAL_SPREAD)
+        xd = torch.from_numpy(x).to(dev)
+        with torch.no_grad():
+            want = float_apply(spec, trained, xd, device=dev).cpu().numpy()
+        if first is None:
+            first = want[:4, :16]
+        top = want.argmax(-1)
+        oracle_acc += int((top == y).sum())
+        for k, fn in paths.items():
+            probs = fn(xd).float().cpu().numpy()
+            agree[k] += int((probs.argmax(-1) == top).sum())
+            dprob[k].extend(np.abs(probs - want).max(axis=-1).tolist())
+        n += EVAL_BATCH
+    record = {
+        "images": n,
+        "paths": {k: {"top1_agreement": agree[k] / n,
+                      "dprob_p50": float(np.percentile(dprob[k], 50)),
+                      "dprob_p99": float(np.percentile(dprob[k], 99)),
+                      "dprob_max": float(np.max(dprob[k]))} for k in paths},
+        "oracle": {"top1_accuracy": oracle_acc / n,
+                   "first_logits_4x16": np.asarray(first, np.float64)
+                   .round(4).tolist()},
+        "train_loss": info,
+        "seconds_per_train_step": step_s,
+    }
+    meta = {"card": card, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "n_eval": N_EVAL,
+            "n_classes": {"quicknet": N_CLASSES},
+            "recipe": f"train_briefly(steps={TRAIN_STEPS}, batch="
+                      f"{TRAIN_BATCH}, seed=0, device='cuda') on "
+                      "make_prototypes(1000 + seed) clustered data; "
+                      f"recalibrate_bn_stats over {RECAL_BATCHES} batches of "
+                      f"{EVAL_BATCH}; calibrate_model on one batch of "
+                      f"{TRAIN_BATCH}; eval {N_EVAL} images at spread "
+                      f"{EVAL_SPREAD} in batches of {EVAL_BATCH} "
+                      "(chip_smoke.py, phase 6)"}
+    print(json.dumps({"accuracy_224": {"_meta": meta, "quicknet": record}}),
+          flush=True)
+    check(record["oracle"]["top1_accuracy"] >= 0.95,
+          f"oracle top-1 {record['oracle']['top1_accuracy']}")
+    for k, bound in ACCURACY_GATES.items():
+        p = record["paths"][k]
+        print(f"[accuracy] QuickNet {k}: top-1 agreement with the float "
+              f"oracle {p['top1_agreement']:.4f} (gate 0.99), dprob p99 "
+              f"{p['dprob_p99']:.4g} (gate {bound}), max {p['dprob_max']:.4g} "
+              f"[{card}]", flush=True)
+        check(p["top1_agreement"] >= 0.99 and p["dprob_p99"] <= bound,
+              f"{k}: {p}")
+    return record
+
+
+def float32_phase(dev, card, bench_bf16):
+    """Phase 6(d): the float32 QuickNet forward, run with TF32 off, timed
+    beside the bf16 one."""
+    import torch
+
+    from compute_engine_tpu_torch.runtime.benchmark import benchmark_model
+
+    b = benchmark_model("quicknet", batch=128, iters=10, warmup=2,
+                        repeats=3, compute_dtype=torch.float32, device=dev)
+    print(f"[float32] QuickNet b128 float32 stream (TF32 off in the call): "
+          f"{b['images_per_sec']:.1f} images/s, p50 "
+          f"{b['latency_ms_p50']:.3f} ms; bfloat16 in this run "
+          f"{bench_bf16['images_per_sec']:.1f} images/s, p50 "
+          f"{bench_bf16['latency_ms_p50']:.3f} ms [{card}]", flush=True)
+    return b
 
 
 def main():
@@ -941,19 +1254,7 @@ def main():
         return 1
     import numpy as np
 
-    from compute_engine_tpu_torch.core import BConv2DParams, Padding
-    from compute_engine_tpu_torch.interop import layers_from_numpy
     from compute_engine_tpu_torch.kernels import _build
-    from compute_engine_tpu_torch.kernels.bgemm import bgemm, bgemm_plain
-    from compute_engine_tpu_torch.kernels.residual import (
-        binary_residual_block, binary_residual_block_plain)
-    from compute_engine_tpu_torch.models import (MODELS, Int8Tensor,
-                                                 PackedBuilder, convert_model,
-                                                 get_model, init_model,
-                                                 packed_apply,
-                                                 prepare_runtime_arrays)
-    from compute_engine_tpu_torch.runtime import Interpreter
-    from compute_engine_tpu_torch.runtime.benchmark import benchmark_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -980,11 +1281,41 @@ def main():
     if "--kernel-times" in args:
         kernel_times(rng, dev, card)
         return 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(args, root, dev, card, device_kind, rng, rng8, tmp)
+    finally:
+        shutil.rmtree(tmp)
+
+
+def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.interop import layers_from_numpy
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm, bgemm_plain
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+    from compute_engine_tpu_torch.models import (MODELS, Int8Tensor,
+                                                 PackedBuilder, convert_model,
+                                                 get_model, init_model,
+                                                 packed_apply,
+                                                 prepare_runtime_arrays)
+    from compute_engine_tpu_torch.runtime import Interpreter
+    from compute_engine_tpu_torch.runtime.benchmark import benchmark_model
+
     if "--serve-only" in args:
         bench = benchmark_model("quicknet", batch=128, iters=10, warmup=3,
                                 repeats=5, device=dev)
         print(json.dumps({"launches_by_path": serving_phase(
-            root, dev, card, bench["images_per_sec"])}))
+            root, dev, card, bench["images_per_sec"], tmp)[0]}))
+        return 0
+    if "--select-only" in args:
+        selection_phase(dev, card)
+        return 0
+    if "--train-only" in args:
+        training_phase(dev, card)
         return 0
 
     # 2. Kernel against its plain version.
@@ -1092,12 +1423,14 @@ def main():
     x = rng.normal(0, 1, (128, *spec.input_size, 3)).astype(np.float32)
     print(f"[quicknet] init + convert + load {time.perf_counter() - t0:.2f} s",
           flush=True)
-    binary_residual_block.launches = 0
+    reset_launches()
     probs = interp.predict(x)
     torch.cuda.synchronize()
-    launches = binary_residual_block.launches
-    check(launches == 16, f"16 residual block launches per forward, got "
-          f"{launches}")
+    qn_counts = launch_counts()
+    launches = qn_counts[0]
+    qn_want = expected_launches("quicknet", 128)
+    check(qn_counts == qn_want, f"QuickNet forward: (block, bgemm, split-K) "
+          f"launches {qn_counts}, the committed table says {qn_want}")
     check(probs.shape == (128, 1000), f"output shape {probs.shape}")
     check(np.isfinite(probs).all(), "non-finite probabilities")
     check(np.allclose(probs.sum(-1), 1.0, atol=1e-3), "rows do not sum to 1")
@@ -1106,7 +1439,8 @@ def main():
     plain = plain.cpu().numpy()
     agree = float((probs.argmax(-1) == plain.argmax(-1)).mean())
     diff = float(np.abs(probs - plain).max())
-    print(f"[quicknet] batch 128: {launches} kernel launches, top-1 agreement "
+    print(f"[quicknet] batch 128: (block, bgemm, split-K) launches "
+          f"{qn_counts} (the committed table: {qn_want}), top-1 agreement "
           f"with the plain path {agree:.4f}, max |dprob| {diff:.3g}",
           flush=True)
     check(agree == 1.0, f"top-1 agreement with the plain path {agree}")
@@ -1127,8 +1461,10 @@ def main():
     gemm_launches = bgemm.launches
     counts = (gemm_launches, bgemm.splitk_launches,
               binary_residual_block.launches)
-    check(counts == (6, 0, 0), "packed BinaryAlexNet: 6 bgemm launches and "
-          f"no other kernel launch per forward, got {counts}")
+    want = expected_launches("binary_alexnet", 128, "packed")
+    alex_want = (want[1], want[2], want[0])
+    check(counts == alex_want, "packed BinaryAlexNet: (bgemm, split-K, "
+          f"block) launches {counts}, the committed table says {alex_want}")
     check(tuple(probs_a.shape) == (128, 1000),
           f"output shape {tuple(probs_a.shape)}")
     check(bool(torch.isfinite(probs_a).all()), "non-finite probabilities")
@@ -1146,7 +1482,8 @@ def main():
     float_counts = (bgemm.launches, binary_residual_block.launches)
     agree_float = (probs_a.argmax(-1) == float_a.argmax(-1)).sum().item()
     diff_float = (probs_a - float_a).abs().max().item()
-    print(f"[alexnet] packed domain, batch 128: {counts[0]} bgemm launches; "
+    print(f"[alexnet] packed domain, batch 128: (bgemm, split-K, block) "
+          f"launches {counts} (the committed table: {alex_want}); "
           f"top-1 agreement with the plain path {agree_plain}/128 (max "
           f"|dprob| {diff_plain:.3g}); with the float domain "
           f"{agree_float}/128 (max |dprob| {diff_float:.3g}; float domain: "
@@ -1156,8 +1493,10 @@ def main():
           f"{agree_plain}/128")
     check(agree_float == 128, f"top-1 agreement with the float domain "
           f"{agree_float}/128")
-    check(float_counts == (3, 3), "float-domain BinaryAlexNet: 3 bgemm and "
-          f"3 residual block launches, got {float_counts}")
+    want = expected_launches("binary_alexnet", 128)
+    check(float_counts == (want[1], want[0]), "float-domain BinaryAlexNet: "
+          f"(bgemm, block) launches {float_counts}, the committed table says "
+          f"{(want[1], want[0])}")
 
     # QuickNet at batch 128 through the true-int8 pipeline. Every binary conv
     # reads the signs off int8 values and writes int8 through the GEMM's
@@ -1214,32 +1553,41 @@ def main():
           f"max |dprob| {(probs8 - float8).abs().max().item():.3g}",
           flush=True)
 
-    # Every zoo model runs on the card in the float domain (batch 4): the
-    # residual kernel takes the 3x3 stride-1 one-padded binary convs, bgemm
-    # every other binary conv and every binary dense.
+    # Every zoo model runs on the card in the float domain (batch 4): once
+    # with each binary layer by the lowering the committed table chooses,
+    # and once with every binary layer on the GEMM ("bgemm"; the
+    # zero-padding correction of Bi-RealNet's convs runs on the card only
+    # there), each against the same forward with the plain versions.
     for name in MODELS:
         zspec = get_model(name)
         zlayers = layers_from_numpy(prepare_runtime_arrays(convert_model(
             zspec, init_model(zspec, seed=0, randomize_bn=True))), dev)
         xz = torch.from_numpy(rng.normal(0, 1, (4, *zspec.input_size, 3))
                               .astype(np.float32)).to(dev)
-        bgemm.launches = 0
-        binary_residual_block.launches = 0
-        pz = packed_apply(zspec, zlayers, xz)
-        torch.cuda.synchronize()
-        zcounts = (bgemm.launches, binary_residual_block.launches)
-        pz_plain = packed_apply(zspec, zlayers, xz, gemm=bgemm_plain,
-                                residual_block=binary_residual_block_plain)
-        zagree = (pz.argmax(-1) == pz_plain.argmax(-1)).sum().item()
-        print(f"[zoo] {name} batch 4, float domain: {zcounts[0]} bgemm and "
-              f"{zcounts[1]} residual block launches, top-1 agreement with "
-              f"the plain path {zagree}/4", flush=True)
-        check(bool(torch.isfinite(pz).all()) and tuple(pz.shape) == (4, 1000),
-              f"{name}: output {tuple(pz.shape)}, finite "
-              f"{bool(torch.isfinite(pz).all())}")
-        check(sum(zcounts) > 0, f"{name}: no kernel launched")
-        check(zagree == 4, f"{name}: top-1 agreement with the plain path "
-              f"{zagree}/4")
+        for k in ("auto", "bgemm"):
+            reset_launches()
+            pz = packed_apply(zspec, zlayers, xz, kernel=k)
+            torch.cuda.synchronize()
+            zcounts = launch_counts()
+            pz_plain = packed_apply(zspec, zlayers, xz, kernel=k,
+                                    gemm=bgemm_plain,
+                                    residual_block=binary_residual_block_plain)
+            zagree = (pz.argmax(-1) == pz_plain.argmax(-1)).sum().item()
+            want = expected_launches(name, 4, kernel=k)
+            print(f"[zoo] {name} batch 4, float domain, kernel={k!r}: "
+                  f"(block, bgemm, split-K) launches {zcounts} (expected "
+                  f"{want}), top-1 agreement with the plain path "
+                  f"{zagree}/4", flush=True)
+            check(bool(torch.isfinite(pz).all())
+                  and tuple(pz.shape) == (4, 1000),
+                  f"{name} kernel={k}: output {tuple(pz.shape)}, finite "
+                  f"{bool(torch.isfinite(pz).all())}")
+            check(zcounts == want, f"{name} kernel={k}: launches {zcounts}, "
+                  f"the runtime's dispatch says {want}")
+            check(k == "auto" or zcounts[1] + zcounts[2] > 0,
+                  f"{name}: no GEMM launched under kernel='bgemm'")
+            check(zagree == 4, f"{name} kernel={k}: top-1 agreement with the "
+                  f"plain path {zagree}/4")
 
     # 4. Timing.
     bench = benchmark_model("quicknet", batch=128, iters=10, warmup=3,
@@ -1366,7 +1714,15 @@ def main():
           f"{int8_per_forward('library_ms'):.4f} ms, bound {int8_bound:.4f} "
           f"ms ({int8_bound_by}) [{card}]", flush=True)
     # 5. The serving path.
-    served = serving_phase(root, dev, card, bench["images_per_sec"])
+    served, artifact = serving_phase(root, dev, card,
+                                     bench["images_per_sec"], tmp)
+
+    # 6. Selection, kernel= and brief training, at full width.
+    selection_phase(dev, card)
+    kernel_phase(dev, card, spec, layers, x, x_dev, plain, alex, alex_layers,
+                 xa, plain_a, artifact)
+    training_phase(dev, card)
+    float32_phase(dev, card, bench)
 
     kernels = [{
         "name": "residual_block",

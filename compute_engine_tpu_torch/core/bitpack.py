@@ -58,9 +58,11 @@ def bitpack(x: torch.Tensor, zero_point: int = 0) -> torch.Tensor:
         bits = torch.nn.functional.pad(bits, (0, pad))
     bits = bits.reshape(*x.shape[:-1], n_words, BITWIDTH).to(torch.int64)
     # Bit 31 has the int32 value -2**31, so the int64 sum of the set bits is
-    # the word's int32 value.
-    weights = torch.tensor([1 << j for j in range(BITWIDTH - 1)] + [-(1 << 31)],
-                           dtype=torch.int64, device=x.device)
+    # the word's int32 value. Made on the device (no copy from the host, so
+    # a CUDA graph can capture it).
+    shifts = torch.arange(BITWIDTH, dtype=torch.int64, device=x.device)
+    weights = (torch.bitwise_left_shift(torch.ones_like(shifts), shifts)
+               - (shifts == BITWIDTH - 1).to(torch.int64) * (1 << 32))
     return (bits * weights).sum(-1).to(PACKED_DTYPE)
 
 
@@ -105,6 +107,6 @@ def bitunpack(packed: torch.Tensor, channels: int, zero_bit_result=1,
     bits = bits.reshape(*packed.shape[:-1], n_words * BITWIDTH)[..., :channels]
     if dtype == torch.bool:
         return bits.bool()
-    one = torch.tensor(one_bit_result, dtype=dtype, device=packed.device)
-    zero = torch.tensor(zero_bit_result, dtype=dtype, device=packed.device)
+    one = torch.full((), one_bit_result, dtype=dtype, device=packed.device)
+    zero = torch.full((), zero_bit_result, dtype=dtype, device=packed.device)
     return torch.where(bits != 0, one, zero)

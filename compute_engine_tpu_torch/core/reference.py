@@ -28,7 +28,7 @@ from .types import Padding, popcount, xor_popcount
 
 __all__ = ["bconv2d_reference", "extract_packed_patches",
            "zero_padding_accum_correction", "outside_tap_mask",
-           "apply_output_kind"]
+           "outside_tap_mask_t", "apply_output_kind"]
 
 
 def extract_packed_patches(x, filter_h, filter_w, stride, dilation,
@@ -65,21 +65,37 @@ def outside_tap_mask(in_h, in_w, out_h, out_w, filter_h, filter_w, stride,
     return ~((in_y >= 0) & (in_y < in_h) & (in_x >= 0) & (in_x < in_w))
 
 
+def outside_tap_mask_t(in_h, in_w, out_h, out_w, filter_h, filter_w, stride,
+                       dilation, pad_top, pad_left, device) -> torch.Tensor:
+    """``outside_tap_mask`` computed on ``device`` (no copy from the host,
+    so a CUDA graph can capture it)."""
+    def ar(n):
+        return torch.arange(n, device=device)
+
+    in_y = (ar(out_h)[:, None, None, None] * stride[0] - pad_top
+            + ar(filter_h)[None, None, :, None] * dilation[0])
+    in_x = (ar(out_w)[None, :, None, None] * stride[1] - pad_left
+            + ar(filter_w)[None, None, None, :] * dilation[1])
+    return ~((in_y >= 0) & (in_y < in_h) & (in_x >= 0) & (in_x < in_w))
+
+
 def zero_padding_accum_correction(packed_filter, params: BConv2DParams,
                                   mask):
     """Integer accumulator correction for SAME zero padding.
 
     Args:
       packed_filter: (O, FH, FW, Cpg) int32 words.
-      mask: bool [OH, OW, FH, FW] from :func:`outside_tap_mask`.
+      mask: bool [OH, OW, FH, FW] from :func:`outside_tap_mask` (numpy) or
+        :func:`outside_tap_mask_t` (a tensor).
 
     Returns int32 [OH, OW, O]: the sum over outside taps of
     ``binary_zero_point - popcount(filter tap)``.
     """
     tap_pop = popcount(packed_filter).sum(dim=-1)  # (O, FH, FW)
     delta = params.binary_zero_point - tap_pop
-    m = torch.as_tensor(np.asarray(mask), dtype=torch.int64,
-                        device=packed_filter.device)
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.from_numpy(np.asarray(mask))
+    m = mask.to(device=packed_filter.device, dtype=torch.int64)
     # Integer contraction (einsum has no integer kernel on the card).
     corr = (m[:, :, None, :, :] * delta[None, None].to(torch.int64)).sum(
         dim=(3, 4))

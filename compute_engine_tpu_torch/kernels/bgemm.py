@@ -39,7 +39,8 @@ import torch
 from ..core.bitpack import bitpack, bitunpack
 from ..core.types import BITWIDTH, PACKED_DTYPE, ceil_div
 
-__all__ = ["bgemm", "bgemm_plain", "plan_bgemm", "OUT_KINDS", "MAX_BLOCK_KW"]
+__all__ = ["bgemm", "bgemm_plain", "plan_bgemm", "uses_split_k", "OUT_KINDS",
+           "MAX_BLOCK_KW"]
 
 SM_COUNT = 132                 # H100 SXM
 _STAGES, _STAGE_KW, _ROW_STRIDE, _COLUMN_PAD = 2, 32, 36, 8
@@ -53,6 +54,12 @@ _OUT_DTYPES = {"accum": torch.int32, "float": torch.float32,
 # counterpart of the JAX kernel's weight-scratch budget, under which its
 # int8 planes switch to the K-blocked grid at KW > 1024 words.
 MAX_BLOCK_KW = 1024
+
+
+def uses_split_k(kw: int, max_block_kw: int = MAX_BLOCK_KW) -> bool:
+    """Whether a GEMM of ``kw`` words of K runs split over K."""
+    return kw > max_block_kw
+
 
 CLAMP_MIN_DEFAULT = -(2 ** 31) + 1
 CLAMP_MAX_DEFAULT = 2 ** 31 - 1
@@ -174,7 +181,7 @@ def _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min, clamp_max,
     cols = ceil_div(n, BITWIDTH) if out_kind == "bitpacked" else n
     out = torch.empty((m, cols), dtype=_OUT_DTYPES[out_kind],
                       device=lhs.device)
-    block_kw = kw if kw <= max_block_kw else max_block_kw
+    block_kw = max_block_kw if uses_split_k(kw, max_block_kw) else kw
     num_k = ceil_div(kw, block_kw)
     plan = plan_bgemm(m, n, kw, block_kw)
     if plan["grid"][2] > 65535 or math.prod(plan["grid"][:2]) >= 2 ** 31:
@@ -196,7 +203,7 @@ def _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min, clamp_max,
     if rc != 0:
         raise RuntimeError("bgemm kernel launch failed: "
                            + lib.ce_error_string(rc).decode())
-    if num_k > 1:
+    if uses_split_k(kw, max_block_kw):
         bgemm.splitk_launches += 1
     else:
         bgemm.launches += 1

@@ -6,6 +6,7 @@ from .builder import (  # noqa: F401
     FloatBuilder,
     InitBuilder,
     Int8Tensor,
+    KERNELS,
     PackedBuilder,
     calibrate_model,
     convert_model,
@@ -14,4 +15,5 @@ from .builder import (  # noqa: F401
     packed_apply,
     prepare_runtime_arrays,
 )
+from .train import synthetic_clustered, train_briefly  # noqa: F401
 from .zoo import MODELS, ModelSpec, get_model, tiny_quicknet  # noqa: F401

@@ -30,6 +30,8 @@ that PackedBuilder reads are tensors on the run's device
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -38,17 +40,23 @@ from ..core.params import BConv2DParams, tflite_same_padding
 from ..core.transforms import (OutputTransform, compute_output_thresholds,
                                fuse_output_transform)
 from ..core.types import Activation, Padding, round_half_away
-from ..device import resolve_device
+from ..device import exact_float32, resolve_device
 from ..interop import layers_from_numpy
+from ..kernels.bconv2d import (bconv2d_mxu_float_in, bconv2d_mxu_s2d,
+                               bdense_mxu, bdense_mxu_float_in)
 from ..kernels.bgemm import bgemm
-from ..kernels.residual import binary_residual_block, residual_block_supported
+from ..kernels.residual import binary_residual_block
+from ..kernels.select import layer_lowering
 from ..ops import bconv2d, bmaxpool2d, quantize
 from . import layers as L
 
 __all__ = ["InitBuilder", "FloatBuilder", "CalibrateBuilder",
            "ConvertBuilder", "PackedBuilder", "Int8Tensor", "init_model",
            "float_apply", "calibrate_model", "convert_model",
-           "packed_apply", "prepare_runtime_arrays"]
+           "packed_apply", "prepare_runtime_arrays", "KERNELS"]
+
+# The ``kernel=`` values of PackedBuilder and the entry points above it.
+KERNELS = ("auto", "reference", "bgemm", "mxu", "s2d", "residual")
 
 
 class _Base:
@@ -559,11 +567,26 @@ class PackedBuilder(_Base):
     the activation stream between layers). ``return_logits`` makes the final
     softmax the identity.
 
-    ``domain="float"``: every 3x3 stride-1 one-padded binary conv on float
-    activations goes through ``residual_block``, fused with its residual add
-    when that is its consumer; every other binary conv runs ``quantize`` ->
-    ``bconv2d_bgemm`` and every binary dense ``quantize`` -> ``bgemm``, as
-    JAX's ``kernel="bgemm"`` does.
+    ``kernel`` chooses the lowering of the binary layers, with the JAX
+    package's names and meanings:
+
+      "auto"      per layer from the selection table (``kernels.select``,
+                  measured on the card): "residual" runs the block kernel,
+                  fused with its residual add when that is the consumer;
+                  "bgemm" runs ``quantize`` -> the binary GEMM; "mxu" the
+                  exact int8 conv or product on +-1 operands; "s2d" that conv
+                  after a space-to-depth retile
+      "residual"  the block kernel wherever it applies, the table elsewhere
+                  (a binary dense takes "mxu", as in JAX)
+      "bgemm", "mxu", "s2d"
+                  that lowering for every binary layer ("s2d" gives "mxu"
+                  where the retile cannot run, and a binary dense takes
+                  "mxu")
+      "reference" the packed oracle (``quantize`` -> ``bconv2d_reference``;
+                  a binary dense takes the GEMM, as in JAX)
+
+    JAX's ``binary_dtype`` (the TPU MXU's operand type) has no meaning on
+    the card and is not taken: the integer lowerings are int8 throughout.
 
     The true-int8 pipeline (an artifact converted with calibrated ranges): a
     conv, depthwise conv or dense layer with ``kernel_int8`` multiplies int8
@@ -574,26 +597,32 @@ class PackedBuilder(_Base):
     dense reads the signs off an ``Int8Tensor``'s values; a binary conv with
     an ``out_scale`` writes int8 through the binary GEMM's int8 epilogue.
     The residual block kernel reads bfloat16 or float32 only and never sees
-    an ``Int8Tensor``: a binary conv with int8 input or int8 output always
-    takes the GEMM, and its residual add is the int8 ADD. Every other
-    consumer takes the float view (``Int8Tensor.to_float``).
+    an ``Int8Tensor``: a binary conv with int8 output always takes the GEMM,
+    whatever ``kernel`` says, and its residual add is the int8 ADD; a binary
+    layer with int8 input takes no block kernel. Every other consumer takes
+    the float view (``Int8Tensor.to_float``).
 
     ``domain="packed"``: binary layers chain through bitpacked activations
     (convert-time thresholds and sign-flipped filters), pooling and flatten
     stay packed between them, and non-binary consumers pull the float view.
-    An artifact without thresholds runs in the float domain.
+    There "residual" and "s2d" mean "auto", which asks the table's packed
+    domain. An artifact without thresholds runs in the float domain.
 
     ``residual_block`` and ``gemm`` pick between kernel and plain version by
     the tensor's device; the plain versions may be passed to run them on the
     card for comparison.
     """
 
-    def __init__(self, layers, compute_dtype=torch.bfloat16,
+    def __init__(self, layers, kernel="auto", compute_dtype=torch.bfloat16,
                  return_logits=False, residual_block=binary_residual_block,
                  gemm=bgemm, domain="float"):
         if domain not in ("float", "packed"):
             raise ValueError(f"unknown domain {domain!r}")
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r}; expected one of "
+                             f"{KERNELS}")
         self.layers = layers
+        self.kernel = kernel
         self.compute_dtype = compute_dtype
         self.return_logits = return_logits
         self.residual_block = residual_block
@@ -773,62 +802,124 @@ class PackedBuilder(_Base):
             clamp_min=int(a["clamp_min"]), clamp_max=int(a["clamp_max"]),
             multiplier=a["multiplier"], bias=a["bias"])
         pf = a["packed_filter"]
+        upf = a.get("filter_pm1")
+        kh, kw = _pair(ksize)
+
+        def lowering(n, in_h, in_w, domain, out_kind, float_in=True):
+            out_h, out_w, _, _ = params.output_spatial(in_h, in_w, kh, kw)
+            return layer_lowering(self.kernel, dict(
+                c_in=params.channels_in, c_out=filters, fh=kh, fw=kw,
+                m=n * out_h * out_w, stride=params.stride, padding=padding,
+                pad_value=params.pad_value, groups=params.groups,
+                dilation=params.dilation), domain, out_kind, float_in)
+
         if self.domain == "packed" and "thresholds" in a:
             packed_in = self._packed_in(x)
-            return _BinaryStream(
-                lambda: bconv2d(
-                    packed_in(), a["packed_filter_flipped"],
-                    OutputTransform(thresholds=a["thresholds"]), params,
-                    output_kind="bitpacked", gemm=self.gemm),
-                lambda: self._store(bconv2d(
-                    packed_in(), pf, transform, params, output_kind="float",
-                    gemm=self.gemm)),
-                filters)
+
+            def run(out_kind):
+                words = packed_in()
+                k = lowering(*words.shape[:3], "packed", out_kind)
+                if out_kind == "bitpacked":
+                    return bconv2d(
+                        words, a["packed_filter_flipped"],
+                        OutputTransform(thresholds=a["thresholds"]), params,
+                        output_kind="bitpacked", kernel=k, gemm=self.gemm)
+                return self._store(bconv2d(
+                    words, pf, transform, params, output_kind="float",
+                    kernel=k, gemm=self.gemm, unpacked_filter=upf))
+
+            return _BinaryStream(lambda: run("bitpacked"),
+                                 lambda: run("float"), filters)
 
         x = self._f(x)
         if "out_scale" in a:
             # int8-output binary conv: the requantisation is folded into the
             # transform and the GEMM's int8 epilogue writes int8, which flows
-            # on as an Int8Tensor. Taken before the block kernel is asked.
+            # on as an Int8Tensor, whatever ``kernel`` says.
             tr8 = OutputTransform(
                 clamp_min=transform.clamp_min, clamp_max=transform.clamp_max,
                 multiplier=a["int8_multiplier"], bias=a["int8_bias"])
             return Int8Tensor(
                 bconv2d(quantize(x), pf, tr8, params, output_kind="int8",
                         gemm=self.gemm), a["out_scale"])
-        upf = a.get("filter_pm1")
-        kh, kw = _pair(ksize)
-        # The block kernel reads bfloat16 or float32 activations; int8
-        # values (ranges given for some layers only) take the GEMM.
-        if x.is_floating_point() and residual_block_supported(
-                x.shape, params, filters, kh, kw, has_residual=False):
+        # The block kernel reads bfloat16 or float32 activations only.
+        k = lowering(*x.shape[:3], "float", "float", x.is_floating_point())
+        if k == "residual":
             if x.shape[-1] == filters:
                 return _DeferredBConv(x, pf, transform, params,
                                       self.residual_block, upf)
             return self._store(self.residual_block(
                 x, pf, transform, params, has_residual=False,
                 unpacked_filter=upf))
-        return self._store(bconv2d(quantize(x), pf, transform, params,
-                                   output_kind="float", gemm=self.gemm))
+        if k == "s2d":
+            y = bconv2d_mxu_s2d(x, pf, transform, params, "float",
+                                unpacked_filter=upf)
+        elif k == "mxu":
+            y = bconv2d_mxu_float_in(x, pf, transform, params, "float",
+                                     unpacked_filter=upf)
+        else:  # "bgemm" and "reference"
+            y = bconv2d(quantize(x), pf, transform, params,
+                        output_kind="float", gemm=self.gemm, kernel=k)
+        return self._store(y)
 
     def binary_dense_bn(self, x, units, *, name):
         if isinstance(x, Int8Tensor):
             x = x.values  # v < 0 is the sign at zero point 0
         a = self.layers[name]
+        c_in = int(a["channels_in"])
+        transform = OutputTransform(
+            clamp_min=int(a["clamp_min"]), clamp_max=int(a["clamp_max"]),
+            multiplier=a["multiplier"], bias=a["bias"])
         float_out = dict(multiplier=a["multiplier"], bias=a["bias"],
                          clamp_min=int(a["clamp_min"]),
                          clamp_max=int(a["clamp_max"]), out_kind="float")
         if self.domain == "packed" and "thresholds" in a:
             packed_in = self._packed_in(x)
-            return _BinaryStream(
-                lambda: self.gemm(packed_in(), a["packed_kernel_flipped"].t(),
-                                  thresholds=a["thresholds"],
-                                  out_kind="bitpacked"),
-                lambda: self._store(self.gemm(
-                    packed_in(), a["packed_kernel"].t(), **float_out)),
-                units)
-        lhs = quantize(self._f(x))  # (M, Cp)
+
+            def run(out_kind):
+                words = packed_in()
+                kernel = self._dense_kernel("packed", c_in, units,
+                                            words.shape[0], out_kind)
+                if out_kind == "bitpacked":
+                    flipped = a["packed_kernel_flipped"]
+                    if kernel == "mxu":
+                        return bdense_mxu(
+                            words, bitunpack(flipped, c_in,
+                                             dtype=torch.int8).t(),
+                            OutputTransform(thresholds=a["thresholds"]),
+                            "bitpacked")
+                    return self.gemm(words, flipped.t(),
+                                     thresholds=a["thresholds"],
+                                     out_kind="bitpacked")
+                if kernel == "mxu":
+                    return self._store(bdense_mxu(
+                        words, self._kernel_pm1(a, c_in), transform))
+                return self._store(self.gemm(
+                    words, a["packed_kernel"].t(), **float_out))
+
+            return _BinaryStream(lambda: run("bitpacked"),
+                                 lambda: run("float"), units)
+        x = self._f(x)
+        kernel = self._dense_kernel("float", c_in, units, x.shape[0],
+                                    "float")
+        if kernel == "mxu":
+            return self._store(bdense_mxu_float_in(
+                x, self._kernel_pm1(a, c_in), transform))
+        lhs = quantize(x)  # (M, Cp)
         return self._store(self.gemm(lhs, a["packed_kernel"].t(), **float_out))
+
+    def _dense_kernel(self, domain, c_in, units, m, out_kind):
+        """A binary dense's lowering: "mxu" or "bgemm"."""
+        return layer_lowering(self.kernel, dict(c_in=c_in, units=units, m=m),
+                              domain, out_kind)
+
+    @staticmethod
+    def _kernel_pm1(a, c_in):
+        """The (C, units) +-1 int8 kernel, unpacked once at load when the
+        runtime prepared it."""
+        if "kernel_pm1" in a:
+            return a["kernel_pm1"]
+        return bitunpack(a["packed_kernel"], c_in, dtype=torch.int8).t()
 
     def dense(self, x, units, *, use_bias=True, activation=None, name):
         a = self.layers[name]
@@ -867,7 +958,9 @@ def float_apply(spec, params, x, device="cuda"):
     Gradients flow (``ste_sign`` passes them straight through), so a caller
     that only evaluates wraps the call in ``torch.no_grad()``."""
     device = resolve_device(device)
-    return spec.forward(FloatBuilder(params), torch.as_tensor(x).to(device))
+    with exact_float32():
+        return spec.forward(FloatBuilder(params),
+                            torch.as_tensor(x).to(device))
 
 
 def convert_model(spec, params, int8_ranges=None, int8_out_ranges=None):
@@ -892,7 +985,7 @@ def calibrate_model(spec, params, batches, with_outputs=False, device="cuda"):
     ``(in_ranges, out_ranges)`` for the true-int8 pipeline."""
     device = resolve_device(device)
     b = CalibrateBuilder(params)
-    with torch.no_grad():
+    with torch.no_grad(), exact_float32():
         for x in batches:
             b._add_idx = 0  # the adds' names restart with every forward
             spec.forward(b, torch.as_tensor(np.asarray(x, np.float32))
@@ -929,11 +1022,15 @@ def prepare_runtime_arrays(layers):
     return out
 
 
-def packed_apply(spec, layers, x, compute_dtype=torch.bfloat16,
+def packed_apply(spec, layers, x, kernel="auto", compute_dtype=torch.bfloat16,
                  return_logits=False, device="cuda",
                  residual_block=binary_residual_block, gemm=bgemm,
                  domain="float"):
     """Packed inference forward on ``device`` (the card by default).
+
+    ``kernel`` chooses the binary layers' lowering (see ``PackedBuilder``).
+    With ``compute_dtype=torch.float32`` the forward runs with TF32 off, so
+    its float layers are float32 as on the CPU.
 
     ``layers`` are artifact layers (numpy) or runtime layers (tensors).
     ``domain="packed"`` chains binary layers through bitpacked activations
@@ -949,11 +1046,14 @@ def packed_apply(spec, layers, x, compute_dtype=torch.bfloat16,
     device = resolve_device(device)
     layers = layers_from_numpy(layers, device)
     x = torch.as_tensor(x).to(device)
-    builder = PackedBuilder(layers, compute_dtype=compute_dtype,
+    builder = PackedBuilder(layers, kernel=kernel,
+                            compute_dtype=compute_dtype,
                             return_logits=return_logits,
                             residual_block=residual_block, gemm=gemm,
                             domain=domain)
-    with torch.inference_mode():
+    exact = (exact_float32() if compute_dtype == torch.float32
+             else contextlib.nullcontext())
+    with torch.inference_mode(), exact:
         out = spec.forward(builder, x)
         if isinstance(out, _BinaryStream):
             out = out.packed()

@@ -9,18 +9,19 @@ from __future__ import annotations
 from ..core.params import BConv2DParams
 from ..core.reference import bconv2d_reference
 from ..core.transforms import OutputTransform
-from ..core.types import PACKED_DTYPE, packed_size
-from ..kernels.bconv2d import bconv2d_bgemm
+from ..core.types import PACKED_DTYPE, Padding, packed_size
+from ..kernels.bconv2d import bconv2d_bgemm, bconv2d_mxu
 from ..kernels.bgemm import bgemm
+from ..kernels.select import layer_lowering
 
 __all__ = ["bconv2d", "KERNELS"]
 
-KERNELS = ("auto", "reference", "bgemm")
+KERNELS = ("auto", "reference", "bgemm", "mxu")
 
 
 def bconv2d(packed_input, packed_filter, transform: OutputTransform,
             params: BConv2DParams, output_kind: str = "float",
-            kernel: str = "auto", gemm=bgemm):
+            kernel: str = "auto", gemm=bgemm, unpacked_filter=None):
     """Binary 2D convolution on bitpacked operands.
 
     Args:
@@ -31,11 +32,12 @@ def bconv2d(packed_input, packed_filter, transform: OutputTransform,
       params: static conv parameters.
       output_kind: "float" | "int8" | "bitpacked".
       kernel: "reference" (the packed oracle), "bgemm" (packed im2col + the
-        binary GEMM kernel) or "auto". The port has no kernel table yet, so
-        "auto" means "bgemm". JAX's "mxu" lowering (an XLA conv, not a Pallas
-        kernel) waits for kernel selection.
+        binary GEMM kernel), "mxu" (unpack to +-1 int8 and the exact integer
+        conv) or "auto", which asks ``kernels.select`` for the packed
+        domain's choice at this shape.
       gemm: the binary GEMM of the "bgemm" kernel (``bgemm`` by default;
         ``bgemm_plain`` runs the plain version on the card).
+      unpacked_filter: optional (FH, FW, Cg, O) +-1 filter for "mxu".
 
     Returns (N, OH, OW, C_out) float32/int8, or (N, OH, OW, ceil(C_out/32))
     int32 words.
@@ -60,10 +62,23 @@ def bconv2d(packed_input, packed_filter, transform: OutputTransform,
             "32 (`prepare_tf.cc:121-146` divisibility rule)")
     if output_kind not in ("float", "int8", "bitpacked"):
         raise ValueError(f"unknown output_kind {output_kind!r}")
+    if kernel == "auto":
+        n, in_h, in_w, _ = packed_input.shape
+        _, fh, fw, _ = packed_filter.shape
+        out_h, out_w, _, _ = params.output_spatial(in_h, in_w, fh, fw)
+        kernel = layer_lowering("auto", dict(
+            c_in=params.channels_in, c_out=packed_filter.shape[0], fh=fh,
+            fw=fw, m=n * out_h * out_w, stride=params.stride,
+            padding="SAME" if params.padding == Padding.SAME else "VALID",
+            pad_value=params.pad_value, groups=params.groups,
+            dilation=params.dilation), "packed", output_kind)
     if kernel == "reference":
         return bconv2d_reference(packed_input, packed_filter, transform,
                                  params, output_kind)
-    if kernel in ("auto", "bgemm"):
+    if kernel == "bgemm":
         return bconv2d_bgemm(packed_input, packed_filter, transform, params,
                              output_kind, gemm=gemm)
+    if kernel == "mxu":
+        return bconv2d_mxu(packed_input, packed_filter, transform, params,
+                           output_kind, unpacked_filter=unpacked_filter)
     raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")

@@ -6,9 +6,9 @@ latency of a window is its event time over ``iters``, and the result is the
 median window. There is no CPU fallback: without a card it raises.
 
 Usage:
-  python -m compute_engine_tpu_torch.runtime.benchmark --model quicknet \
-      --batch 128 [--iters 20] [--repeats 5] [--f32] [--domain packed] \
-      [--int8]
+  python -m compute_engine_tpu_torch.runtime.benchmark --model quicknet \\
+      --batch 128 [--iters 20] [--repeats 5] [--kernel auto] \\
+      [--artifact q.npz] [--input-size 224] [--f32] [--domain packed] [--int8]
 """
 
 from __future__ import annotations
@@ -20,50 +20,115 @@ import time
 import numpy as np
 import torch
 
+from ..converter import load_artifact
 from ..device import resolve_device
 from ..interop import layers_from_numpy
-from ..models import (calibrate_model, convert_model, get_model, init_model,
-                      packed_apply, prepare_runtime_arrays)
+from ..models import (KERNELS, calibrate_model, convert_model, get_model,
+                      init_model, packed_apply, prepare_runtime_arrays)
+from .interpreter import artifact_model
+
+__all__ = ["benchmark_model", "memory_metrics", "activation_peak_bytes"]
 
 
-def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
-                    repeats=5, seed=0, compute_dtype=torch.bfloat16,
+def memory_metrics(layers, x):
+    """``weights_mb``: bytes of every array the runtime holds on the device
+    (packed filters, the +-1 filters unpacked at load, transforms, float
+    kernels), and ``input_mb``: bytes of the input batch; MiB rounded to 2
+    places, as the JAX package's ``_memory_metrics`` reports them. ``layers``
+    are runtime layers (``layers_from_numpy(prepare_runtime_arrays(...))``),
+    ``x`` the input tensor."""
+    weight_bytes = sum(v.numel() * v.element_size()
+                       for entry in layers.values() for v in entry.values()
+                       if isinstance(v, torch.Tensor) and v.dim() > 0)
+    return {"weights_mb": round(weight_bytes / 2 ** 20, 2),
+            "input_mb": round(x.numel() * x.element_size() / 2 ** 20, 2)}
+
+
+def activation_peak_bytes(forward):
+    """Bytes of the largest tensor any operation creates in one call of
+    ``forward``: every op's output, intermediates such as an im2col
+    included, as JAX's benchmark takes the largest value of its traced
+    program. Kernels launched through ctypes write into tensors that torch
+    allocated, which count too."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    best = [0]
+
+    class Largest(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    best[0] = max(best[0], t.numel() * t.element_size())
+            return out
+
+    with Largest():
+        forward()
+    return best[0]
+
+
+def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
+                    seed=0, kernel="auto", artifact_path=None,
+                    compute_dtype=torch.bfloat16, input_size=None,
                     device="cuda", domain="float", int8_pipeline=False):
-    """Latency and images/s of ``packed_apply`` at ``batch`` on the card.
+    """Latency, images/s and memory of ``packed_apply`` at ``batch`` on the
+    card.
 
-    Weights are random from ``seed`` (``init_model(randomize_bn=True)``).
-    ``domain="packed"`` chains binary layers through bitpacked activations
-    (BinaryAlexNet's conv2-5 and fc1 run bitpacked in and out).
+    Without ``artifact_path`` the weights are random from ``seed``
+    (``init_model(randomize_bn=True)``) for ``model`` (QuickNet when none is
+    named). With it, the artifact is loaded with ``load_artifact`` and its
+    model is ``model`` if given, else the graph program in its header or the
+    zoo model of its name, as ``Interpreter`` does. ``input_size`` overrides
+    the model's (H, W). ``kernel`` chooses the binary layers' lowering (see
+    ``models.PackedBuilder``). ``domain="packed"`` chains binary layers
+    through bitpacked activations.
 
-    ``int8_pipeline`` times the true-int8 execution mode: the model is
-    calibrated on two random batches of 8 (from ``seed + 1``) and converted
-    with input and output ranges, so non-binary layers run in int8, binary
-    convs write int8 through the binary GEMM's epilogue, and the calibrated
-    residual adds run as int8 ADDs."""
+    ``int8_pipeline`` (no artifact) times the true-int8 execution mode: the
+    model is calibrated on two random batches of 8 (from ``seed + 1``) and
+    converted with input and output ranges.
+
+    Memory: ``weights_mb`` and ``input_mb`` (``memory_metrics``),
+    ``act_peak_mb`` (``activation_peak_bytes`` of one forward) and
+    ``peak_hbm_mb``, the allocator's peak over the whole run, in MiB.
+    """
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("benchmark_model times the card; it has no CPU mode")
-    spec = get_model(model) if isinstance(model, str) else model
-    params = init_model(spec, seed=seed, randomize_bn=True)
-    ranges = {}
-    if int8_pipeline:
-        crng = np.random.default_rng(seed + 1)
-        in_r, out_r = calibrate_model(
-            spec, params,
-            [crng.normal(0, 1, (8, *spec.input_size, 3)).astype(np.float32)
-             for _ in range(2)], with_outputs=True, device=device)
-        ranges = {"int8_ranges": in_r, "int8_out_ranges": out_r}
-    layers = layers_from_numpy(prepare_runtime_arrays(convert_model(
-        spec, params, **ranges)), device)
+    if artifact_path is not None:
+        if int8_pipeline:
+            raise ValueError("int8_pipeline converts random weights; an "
+                             "artifact is timed as it was converted")
+        name, config, layers_np = load_artifact(artifact_path)
+        if model is None:
+            spec = artifact_model(name, config)
+        else:
+            spec = get_model(model) if isinstance(model, str) else model
+    else:
+        model = "quicknet" if model is None else model
+        spec = get_model(model) if isinstance(model, str) else model
+        params = init_model(spec, seed=seed, randomize_bn=True)
+        ranges = {}
+        if int8_pipeline:
+            crng = np.random.default_rng(seed + 1)
+            in_r, out_r = calibrate_model(
+                spec, params,
+                [crng.normal(0, 1, (8, *(input_size or spec.input_size), 3))
+                 .astype(np.float32) for _ in range(2)],
+                with_outputs=True, device=device)
+            ranges = {"int8_ranges": in_r, "int8_out_ranges": out_r}
+        layers_np = convert_model(spec, params, **ranges)
+    torch.cuda.reset_peak_memory_stats(device)
+    layers = layers_from_numpy(prepare_runtime_arrays(layers_np), device)
+    size = tuple(input_size or spec.input_size)
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.normal(0, 1, (batch, *spec.input_size, 3))
+    x = torch.from_numpy(rng.normal(0, 1, (batch, *size, 3))
                          .astype(np.float32)).to(device)
 
     def forward():
-        return packed_apply(spec, layers, x, compute_dtype=compute_dtype,
-                            device=device, domain=domain)
+        return packed_apply(spec, layers, x, kernel=kernel,
+                            compute_dtype=compute_dtype, device=device,
+                            domain=domain)
 
-    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     forward()
     torch.cuda.synchronize(device)
@@ -82,9 +147,11 @@ def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
         times.append(start.elapsed_time(end) / iters)
     times = np.asarray(times)
     p50 = float(np.median(times))
+    act_peak = activation_peak_bytes(forward)
     return {
         "model": spec.name,
         "batch": batch,
+        "kernel": kernel,
         "compute_dtype": str(compute_dtype).replace("torch.", ""),
         "domain": domain,
         "int8_pipeline": int8_pipeline,
@@ -94,18 +161,27 @@ def benchmark_model(model="quicknet", batch=128, iters=20, warmup=3,
         "latency_ms_min": float(times.min()),
         "latency_ms_max": float(times.max()),
         "images_per_sec": batch / (p50 / 1e3),
-        "peak_mem_mb": torch.cuda.max_memory_allocated(device) / 2 ** 20,
+        **memory_metrics(layers, x),
+        "act_peak_mb": round(act_peak / 2 ** 20, 2),
+        "peak_hbm_mb": round(torch.cuda.max_memory_allocated(device)
+                             / 2 ** 20, 1),
     }
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", default="quicknet")
+    p.add_argument("--model", default=None,
+                   help="zoo model (default quicknet, or the artifact's)")
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--kernel", default="auto", choices=KERNELS)
+    p.add_argument("--artifact", default=None,
+                   help="time a converted artifact (.npz)")
+    p.add_argument("--input-size", type=int, default=None,
+                   help="square input size in place of the model's")
     p.add_argument("--f32", action="store_true",
                    help="float32 activation stream instead of bfloat16")
     p.add_argument("--domain", default="float", choices=["float", "packed"],
@@ -115,9 +191,11 @@ def main(argv=None):
                    help="true-int8 pipeline (calibrated; int8 stream, int8 "
                         "residual adds)")
     args = p.parse_args(argv)
+    size = (args.input_size, args.input_size) if args.input_size else None
     print(json.dumps(benchmark_model(
         model=args.model, batch=args.batch, iters=args.iters,
         warmup=args.warmup, repeats=args.repeats, seed=args.seed,
+        kernel=args.kernel, artifact_path=args.artifact, input_size=size,
         compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
         domain=args.domain, int8_pipeline=args.int8)))
 

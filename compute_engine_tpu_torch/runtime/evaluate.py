@@ -10,7 +10,7 @@ per-channel mean).
 Usage:
   python -m compute_engine_tpu_torch.runtime.evaluate --model quicknet \\
       --artifact q.npz --data imagenet_dir:/path/to/val [--batch 64] \\
-      [--device cuda]
+      [--kernel auto] [--device cuda]
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..models.builder import KERNELS
 
 __all__ = ["evaluate", "imagenet_preprocess", "synthetic_batches"]
 
@@ -119,6 +121,7 @@ def main(argv=None):
     p.add_argument("--data", default="synthetic",
                    help="'synthetic' or 'imagenet_dir:/path'")
     p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--kernel", default="auto", choices=KERNELS)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -128,11 +131,12 @@ def main(argv=None):
     spec = get_model(args.model)
     if args.artifact:
         interp = Interpreter(artifact_path=args.artifact, model=spec,
-                             device=args.device)
+                             kernel=args.kernel, device=args.device)
     else:
         layers = convert_model(spec, init_model(spec, seed=0,
                                                 randomize_bn=True))
-        interp = Interpreter(spec, layers, device=args.device)
+        interp = Interpreter(spec, layers, kernel=args.kernel,
+                             device=args.device)
 
     if args.data.startswith("imagenet_dir:"):
         batches = _imagenet_dir_batches(args.data.split(":", 1)[1],

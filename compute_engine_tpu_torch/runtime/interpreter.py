@@ -14,10 +14,23 @@ from ..converter import load_artifact
 from ..core.types import round_half_away, saturate_int8
 from ..device import resolve_device
 from ..interop import layers_from_numpy
-from ..models import get_model, packed_apply, prepare_runtime_arrays
+from ..models import KERNELS, get_model, packed_apply, prepare_runtime_arrays
 from ..models.zoo import ModelSpec
 
-__all__ = ["Interpreter"]
+__all__ = ["Interpreter", "artifact_model"]
+
+
+def artifact_model(name, config):
+    """The model of an artifact loaded without one named: the graph program
+    in its header when it carries one (a self-contained artifact needs no
+    registry entry or Python model definition), else the zoo model of its
+    header's name."""
+    if isinstance(config, dict) and config.get("graph_program"):
+        from ..converter.graph_import import spec_from_program
+        return spec_from_program(
+            config["graph_program"], input_size=config["input_size"],
+            num_classes=config["num_classes"], name=name)
+    return get_model(name)
 
 
 class Interpreter:
@@ -28,6 +41,8 @@ class Interpreter:
       layers: artifact layer dict (from ``convert_model`` or
         ``load_artifact``); if ``artifact_path`` is given it is loaded,
         and an artifact that carries its graph program needs no ``model``.
+      kernel: the binary layers' lowering ("auto" | "residual" | "bgemm" |
+        "mxu" | "s2d" | "reference"; see ``models.PackedBuilder``).
       compute_dtype: dtype of the activation stream between layers.
       input_scale, input_zero_point: take int8/uint8 images directly.
       output_mode: "probs", "logits" or "int8" (needs ``output_scale``).
@@ -35,34 +50,28 @@ class Interpreter:
     """
 
     def __init__(self, model=None, layers=None, artifact_path=None,
-                 compute_dtype=torch.bfloat16, input_scale=None,
+                 kernel="auto", compute_dtype=torch.bfloat16, input_scale=None,
                  input_zero_point=0, output_mode="probs", output_scale=None,
                  output_zero_point=0, device="cuda"):
         self.device = resolve_device(device)
         if artifact_path is not None:
             name, config, layers = load_artifact(artifact_path)
             if model is None:
-                if isinstance(config, dict) and config.get("graph_program"):
-                    # Self-contained artifact: the graph program travels in
-                    # the header beside the packed weights, so no registry
-                    # entry or Python model definition is needed.
-                    from ..converter.graph_import import spec_from_program
-                    model = spec_from_program(
-                        config["graph_program"],
-                        input_size=config["input_size"],
-                        num_classes=config["num_classes"], name=name)
-                else:
-                    model = name
+                model = artifact_model(name, config)
         if isinstance(model, str):
             model = get_model(model)
         if not isinstance(model, ModelSpec) or layers is None:
             raise ValueError("Interpreter needs a model spec and layers "
                              "(or artifact_path)")
+        if kernel not in KERNELS:
+            raise ValueError(f"unknown kernel {kernel!r}; expected one of "
+                             f"{KERNELS}")
         if output_mode not in ("probs", "logits", "int8"):
             raise ValueError(f"unknown output_mode {output_mode!r}")
         if output_mode == "int8" and output_scale is None:
             raise ValueError("output_mode='int8' requires output_scale")
         self.spec = model
+        self.kernel = kernel
         self.compute_dtype = compute_dtype
         self.input_scale = input_scale
         self.input_zero_point = input_zero_point
@@ -121,7 +130,7 @@ class Interpreter:
                  * float(self.input_scale))
         elif x.dtype != torch.float32:
             x = x.to(torch.float32)
-        out = packed_apply(self.spec, self.layers, x,
+        out = packed_apply(self.spec, self.layers, x, kernel=self.kernel,
                            compute_dtype=self.compute_dtype,
                            return_logits=self.output_mode == "logits",
                            device=self.device)

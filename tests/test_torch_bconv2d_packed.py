@@ -189,7 +189,7 @@ def test_bconv2d_checks_match_jax():
     with pytest.raises(ValueError, match="output_kind"):
         bconv2d(x, f, OutputTransform(), tp, output_kind="bits8")
     with pytest.raises(ValueError, match="unknown kernel"):
-        bconv2d(x, f, OutputTransform(), tp, kernel="mxu")
+        bconv2d(x, f, OutputTransform(), tp, kernel="winograd")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8", "bool"])
