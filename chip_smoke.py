@@ -121,6 +121,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Phases 3 and 5 gate the launch counts of the "auto" forward at what the
    committed table chooses (``expected_launches``).
 
+7. The multi-device path (``--multi-only`` builds and runs this phase
+   alone), from a generator of its own. A mesh takes distinct cards where
+   the visible ones cover it, else ``cuda:0`` repeated (each line says
+   which):
+   - ``tp_bconv2d`` at QuickNet's b128 shapes 14x14x256 and 7x7x512 over 2
+     and 4 slots: "gather" and "sharded" with float and bitpacked output,
+     "pipelined" with float, int8 and bitpacked; each ``torch.equal`` to the
+     single-slot ``ops.bconv2d`` with the GEMM lowering, with the kernel and
+     again with the plain GEMM on the shards, at the launches
+     ``layer_launches`` gives at the shard shape; "pipelined" issues ring
+     copies and no all-gather. The block kernel at every QuickNet shape
+     with a slot's share of the output channels, against its plain version;
+   - ``ShardedInterpreter``, QuickNet 224x224 b128, meshes (2, 1), (1, 2),
+     (2, 2) (and (4, 1), (1, 4) with four cards) at float32 (top-1 128/128
+     and max |dprob| <= 1e-3 against ``Interpreter``) and bf16 (printed);
+     launches as ``expected_sharded_launches`` derives them at the shard
+     shapes; images/s and device busy per mesh; the plain versions on the
+     shards at (1, 2); packed BinaryAlexNet b128 at (1, 2), top-1 128/128
+     against ``packed_apply(domain="packed")``;
+   - ``MultiHostServer`` over hosts h0 (slots 0-1) and h1 (slots 2-3), tp
+     2, batch 128: 512 requests equal to the direct forward on its mesh; h1
+     lost, one reshard to two slots, 128 requests top-1 128/128 against
+     ``Interpreter``; h1 back, four slots;
+   - ``launch_workers`` on the card (NCCL on two cards, else a one-rank
+     NCCL group and a two-rank Gloo group on ``cuda:0``): every rank's
+     output within 1e-5 of the single-process float32 ``packed_apply``;
+   - the kernels' debug builds (``kernels.debug_checks()``): silent and equal
+     to the default build at the main-path shapes; each of the four checks
+     trips on a deliberately broken call by raising, and the default build
+     still gives its results afterwards.
+
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA device, or outside a checkout of the repo.
@@ -1235,6 +1266,472 @@ def float32_phase(dev, card, bench_bf16):
     return b
 
 
+# Phase 7: shapes and meshes. QuickNet's b128 binary convs at sections 2 and
+# 3 (14x14x256 and 7x7x512) for tp_bconv2d; the block kernel also at every
+# section's shape as each mesh's data group and model slot see it.
+MULTI_TP_SHAPES = [(128, 14, 14, 256), (128, 7, 7, 512)]
+MULTI_TP_SLOTS = (2, 4)
+MULTI_MESHES = [(2, 1), (1, 2), (2, 2)]
+MULTI_MESHES_4 = [(4, 1), (1, 4)]  # where four cards are visible
+# float32 against the single-device Interpreter: the binary layers are
+# exact and the float convs on channel slices measured no difference on the
+# H100, so the gate sits far below a typical probability (1e-3 of 1000
+# classes); the kernels themselves are held torch.equal to the plain
+# versions on every mesh.
+MULTI_PROB_TOL = 1e-5
+MULTI_BATCH = 128
+
+
+def multi_block_shards():
+    """(images, slots) of the block kernel's launches on every mesh phase 7
+    may run: a data group's share of the batch, and the model slots that
+    split its output channels; also the tp_bconv2d slot counts at b128."""
+    meshes = MULTI_MESHES + MULTI_MESHES_4
+    return sorted({(MULTI_BATCH // dp, tp) for dp, tp in meshes}
+                  | {(MULTI_BATCH, s) for s in MULTI_TP_SLOTS})
+
+
+def mesh_devices(n):
+    """``n`` slots: distinct cards where the visible ones cover them, else
+    ``cuda:0`` ``n`` times; and a label saying which."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], f"{n} cards"
+    return [torch.device("cuda", 0)] * n, f"cuda:0 x {n}"
+
+
+def expected_sharded_launches(model, batch, mesh_shape, domain="float",
+                              kernel="auto"):
+    """(block, bgemm, split-K) launches of one sharded forward of the zoo
+    ``model`` at global ``batch`` over a (dp, tp) mesh: each data group runs
+    batch / dp images; a binary layer that ``partition.shards_layer`` shards
+    runs on every model slot at its shard's shape, any other one once at
+    its own; each by the runtime's dispatch (``select.layer_lowering``,
+    ``select.layer_launches``) at that shape."""
+    from compute_engine_tpu_torch.kernels import select
+    from compute_engine_tpu_torch.models import get_model
+    from compute_engine_tpu_torch.models.shapes import binary_layer_modes
+    from compute_engine_tpu_torch.parallel.partition import shards_layer
+
+    dp, tp = mesh_shape
+    counts = [0, 0, 0]
+    for kind, r, dom, out_kind in binary_layer_modes(get_model(model),
+                                                      batch // dp):
+        if dom != domain:
+            continue
+        width = "units" if kind == "dense" else "c_out"
+        copies = 1
+        if r.get("groups", 1) == 1 and shards_layer(r[width], tp, out_kind):
+            r, copies = dict(r, **{width: r[width] // tp}), tp
+        low = select.layer_lowering(kernel, r, dom, out_kind)
+        for i, n in enumerate(select.layer_launches(low, r)):
+            counts[i] += dp * copies * n
+    return tuple(counts)
+
+
+def forward_ms(forward, reps=5):
+    """Host milliseconds per call of ``forward``, each ended by a
+    synchronise, after one warm-up call."""
+    import torch
+
+    forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        forward()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def expect_trip(call, match):
+    """Run ``call``, which must raise the debug check named by ``match``;
+    returns the message."""
+    import torch
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        check(match in str(e), f"debug check: expected {match!r}, got {e}")
+        return str(e)
+    raise RuntimeError(f"FAILED: the {match!r} debug check did not trip")
+
+
+def multi_device_phase(dev, card, tmp):
+    """Phase 7: the multi-device path on the card (``--multi-only`` alone).
+    Returns the (block, bgemm, split-K) launches of each sharded path."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.converter import save_artifact
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding, bitpack
+    from compute_engine_tpu_torch.core.transforms import (
+        OutputTransform, compute_output_thresholds, fuse_output_transform)
+    from compute_engine_tpu_torch.kernels import debug_checks, select
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm, bgemm_plain
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+    from compute_engine_tpu_torch.models import (convert_model, get_model,
+                                                 init_model, packed_apply,
+                                                 prepare_runtime_arrays)
+    from compute_engine_tpu_torch.ops import bconv2d
+    from compute_engine_tpu_torch.parallel import (make_mesh, shard_artifact,
+                                                   tp_bconv2d)
+    from compute_engine_tpu_torch.parallel.partition import (
+        partition_layers, sharded_apply)
+    from compute_engine_tpu_torch.runtime import Interpreter
+    from compute_engine_tpu_torch.runtime.distributed_serving import (
+        MultiHostServer, ShardedInterpreter)
+    from compute_engine_tpu_torch.runtime.multiprocess import launch_workers
+
+    t_phase = time.perf_counter()
+    mrng = np.random.default_rng(7)  # this phase's own draws
+    cards = torch.cuda.device_count()
+    paths = {}
+    print(f"[multi] {cards} card(s) visible; a mesh takes distinct cards "
+          "where they cover it, else cuda:0 repeated", flush=True)
+
+    # (a) tp_bconv2d at full width, every mode and output kind, held to the
+    # single-slot op with the GEMM lowering, with the kernel and again with
+    # the plain GEMM; and the block kernel on each shard's shape.
+    def pm1(shape):
+        return np.where(mrng.normal(size=shape) < 0, -1.0, 1.0).astype(
+            np.float32)
+
+    modes = (("gather", ("float", "bitpacked")),
+             ("sharded", ("float", "bitpacked")),
+             ("pipelined", ("float", "int8", "bitpacked")))
+    for n, h, w, c in MULTI_TP_SHAPES:
+        xp = bitpack(torch.from_numpy(pm1((n, h, w, c))).to(dev))
+        filt = pm1((c, 3, 3, c))
+        post_mul = (mrng.uniform(0.2, 2.0, c)
+                    * mrng.choice([-1.0, 1.0], c)).astype(np.float32)
+        post_bias = mrng.uniform(-3, 3, c).astype(np.float32)
+        params = BConv2DParams(channels_in=c, padding=Padding.SAME,
+                               pad_value=1)
+        cases = {}
+        for kind in ("float", "int8", "bitpacked"):
+            if kind == "bitpacked":
+                flip = np.where(post_mul >= 0, 1.0, -1.0)
+                wf, t = filt * flip[:, None, None, None], OutputTransform(
+                    thresholds=compute_output_thresholds(post_mul, post_bias,
+                                                         9 * c))
+            else:
+                wf, t = filt, fuse_output_transform(
+                    post_mul, post_bias, 9 * c,
+                    output_scale=0.05 if kind == "int8" else None)
+            cases[kind] = bitpack(torch.from_numpy(wf).to(dev)), t
+        for slots in MULTI_TP_SLOTS:
+            devices, where = mesh_devices(slots)
+            mesh = make_mesh((1, slots), devices=devices)
+            for mode, kinds in modes:
+                for kind in kinds:
+                    wp, t = cases[kind]
+                    want = bconv2d(xp, wp, t, params, kind, kernel="bgemm")
+                    log = []
+                    reset_launches()
+                    got = tp_bconv2d(xp, wp, t, params, mesh,
+                                     output_kind=kind, kernel="bgemm",
+                                     mode=mode, log=log).join(dev)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+                    plain = tp_bconv2d(xp, wp, t, params, mesh,
+                                       output_kind=kind, kernel="bgemm",
+                                       mode=mode, gemm=bgemm_plain).join(dev)
+                    per = n // slots if mode == "pipelined" else n
+                    one = select.layer_launches("bgemm", dict(
+                        c_in=c, c_out=c // slots, fh=3, fw=3, m=per * h * w))
+                    calls = slots * slots if mode == "pipelined" else slots
+                    exp = tuple(calls * v for v in one)
+                    label = f"tp_bconv2d {mode} {kind} S={slots} {h}x{w}x{c}"
+                    check(torch.equal(got, want), f"{label}: != the "
+                          f"single-slot op (max |diff| "
+                          f"{max_abs_diff(got, want)})")
+                    check(torch.equal(plain, want), f"{label}: the plain "
+                          "GEMM on the shards != the single-slot op")
+                    check(counts == exp, f"{label}: launches {counts}, "
+                          f"layer_launches at the shard shape says {exp}")
+                    kinds_seen = {r["kind"] for r in log}
+                    check(kinds_seen == {"pipelined": {"ppermute"},
+                                         "gather": {"all_gather"},
+                                         "sharded": set()}[mode],
+                          f"{label}: collectives {kinds_seen}")
+                    paths[label] = counts
+                    print(f"[multi] {label} on {where}: equal to the "
+                          f"single-slot op and to the plain GEMM on the "
+                          f"shards ({TOLERANCE}); (block, bgemm, split-K) "
+                          f"{counts}; collectives {sorted(kinds_seen)}, "
+                          f"{sum(r['bytes'] for r in log)} bytes",
+                          flush=True)
+    shards = multi_block_shards()
+    for shape in QUICKNET_BLOCKS:
+        c = shape[-1]
+        p = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
+        for images, slots in shards:
+            for dt in (torch.bfloat16, torch.float32):
+                add = slots == 1  # a channel slice launches without the add
+                x, pf, tr = block_case(mrng, (images, *shape[1:]), dev, dt,
+                                       False, c // slots)
+                got = binary_residual_block(x, pf, tr, p, has_residual=add)
+                want = binary_residual_block_plain(x, pf, tr, p,
+                                                   has_residual=add)
+                check(torch.equal(got, want), f"residual_block "
+                      f"{images}x{shape[1]}x{shape[2]}x{c} -> {c // slots} "
+                      f"{str(dt)[6:]} (add {add}): kernel != plain")
+        print(f"[multi] residual_block {'x'.join(map(str, shape[1:]))} at "
+              f"(images, output channels) "
+              f"{[(i, c // s) for i, s in shards]}, bf16 and float32, the "
+              f"add where every channel stays: equal to the plain version "
+              f"({TOLERANCE})", flush=True)
+
+    # (b) ShardedInterpreter: QuickNet 224x224 b128 at float32 and bf16,
+    # against the single-device Interpreter; packed BinaryAlexNet at (1, 2).
+    spec = get_model("quicknet")
+    t0 = time.perf_counter()
+    layers = convert_model(spec, init_model(spec, seed=0, randomize_bn=True))
+    batch = MULTI_BATCH
+    xq = mrng.normal(0, 1, (batch, *spec.input_size, 3)).astype(np.float32)
+    x_dev = torch.from_numpy(xq).to(dev)
+    ref = {dt: Interpreter(spec, layers, compute_dtype=dt, device=dev)(x_dev)
+           for dt in (torch.float32, torch.bfloat16)}
+    print(f"[multi] QuickNet init + convert + reference forwards "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    meshes = MULTI_MESHES + (MULTI_MESHES_4 if cards >= 4 else [])
+    for shape in meshes:
+        devices, where = mesh_devices(shape[0] * shape[1])
+        for dt in (torch.float32, torch.bfloat16):
+            interp = ShardedInterpreter(
+                spec, layers, mesh=make_mesh(shape, devices=devices),
+                compute_dtype=dt)
+            reset_launches()
+            probs = interp(x_dev).to(dev)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            exp = expected_sharded_launches("quicknet", batch, shape)
+            name = str(dt)[6:]
+            label = f"ShardedInterpreter quicknet b{batch} {shape} {name}"
+            check(counts == exp, f"{label}: launches {counts}, "
+                  f"layer_launches at the shard shapes says {exp}")
+            check(tuple(probs.shape) == (batch, spec.num_classes) and bool(
+                torch.isfinite(probs).all()), f"{label}: output")
+            agree = (probs.argmax(-1) == ref[dt].argmax(-1)).sum().item()
+            dprob = (probs - ref[dt]).abs().max().item()
+            if dt == torch.float32:
+                check(agree == batch and dprob <= MULTI_PROB_TOL,
+                      f"{label}: top-1 {agree}/{batch}, max |dprob| {dprob} "
+                      f"against the Interpreter (gate {MULTI_PROB_TOL})")
+            plain = sharded_apply(spec, interp.layers, x_dev, interp.mesh,
+                                  compute_dtype=dt,
+                                  residual_block=binary_residual_block_plain,
+                                  gemm=bgemm_plain).to(dev)
+            check(torch.equal(probs, plain), f"{label}: != the same forward "
+                  f"with the plain versions on the shards (max |dprob| "
+                  f"{max_abs_diff(probs, plain)})")
+            ms = forward_ms(lambda: interp(x_dev))
+            busy = profile_forward(lambda: interp(x_dev), n=3, top=0)
+            paths[label] = counts
+            print(f"[multi] {label} on {where}: top-1 {agree}/{batch} "
+                  f"against the Interpreter, max |dprob| {dprob:.3g}"
+                  f"{'' if dt == torch.float32 else ' (not gated)'}; equal "
+                  f"to the plain versions on the shards ({TOLERANCE}); "
+                  f"(block, bgemm, split-K) {counts}; {ms:.3f} ms, "
+                  f"{batch / ms * 1e3:.1f} images/s, device busy "
+                  f"{ms_text(busy)} per forward [{card}]", flush=True)
+    devices, where = mesh_devices(2)
+    mesh = make_mesh((1, 2), devices=devices)
+    alex = get_model("binary_alexnet")
+    alayers = convert_model(alex, init_model(alex, seed=0, randomize_bn=True))
+    xa = torch.from_numpy(mrng.normal(0, 1, (batch, *alex.input_size, 3))
+                          .astype(np.float32)).to(dev)
+    ref_a = packed_apply(alex, alayers, xa, domain="packed", device=dev)
+    sharded = shard_artifact(prepare_runtime_arrays(alayers), mesh)
+    groups = partition_layers(sharded, mesh)
+
+    def alex_forward():
+        return sharded_apply(alex, sharded, xa, mesh, domain="packed",
+                             groups=groups)
+
+    reset_launches()
+    probs_a = alex_forward().to(dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    exp = expected_sharded_launches("binary_alexnet", batch, (1, 2),
+                                    "packed")
+    label = f"sharded_apply binary_alexnet packed b{batch} (1, 2)"
+    agree = (probs_a.argmax(-1) == ref_a.argmax(-1)).sum().item()
+    check(counts == exp, f"{label}: launches {counts}, expected {exp}")
+    check(agree == batch, f"{label}: top-1 {agree}/{batch} against "
+          "packed_apply")
+    ms = forward_ms(alex_forward)
+    busy = profile_forward(alex_forward, n=3, top=0)
+    paths[label] = counts
+    print(f"[multi] {label} on {where}: top-1 {agree}/{batch} against "
+          f"packed_apply(domain='packed'), max |dprob| "
+          f"{max_abs_diff(probs_a, ref_a):.3g}; (block, bgemm, split-K) "
+          f"{counts}; {ms:.3f} ms, {batch / ms * 1e3:.1f} images/s, device "
+          f"busy {ms_text(busy)} per forward [{card}]", flush=True)
+
+    # (c) MultiHostServer over two hosts of two slots, batch 128, float32.
+    devices, where = mesh_devices(4)
+    hosts = {"h0": devices[:2], "h1": devices[2:]}
+    more = mrng.normal(0, 1, (3 * batch, *spec.input_size, 3)).astype(
+        np.float32)
+    requests = np.concatenate([xq, more])
+    t0 = time.perf_counter()
+    with MultiHostServer(spec, layers, host_devices=hosts, tp=2,
+                         batch_size=batch, max_delay_ms=2000,
+                         heartbeat_timeout_s=3600,
+                         compute_dtype=torch.float32) as server:
+        check(server._interp.mesh.shape == {"data": 2, "model": 2},
+              f"server mesh {server._interp.mesh.shape}")
+        futs = [server.submit(im) for im in requests]
+        served = np.stack([f.result(timeout=300) for f in futs])
+        direct = np.concatenate([
+            server._interp(requests[i:i + batch]).cpu().numpy()
+            for i in range(0, len(requests), batch)])
+        check(np.array_equal(served, direct), "server: a served row differs "
+              "from the direct forward on the same mesh (max |diff| "
+              f"{np.abs(served - direct).max()})")
+        server.monitor.heartbeat("h0")
+        server.monitor._last_seen["h1"] = server.monitor._clock() - 7200
+        server.monitor.check_now()
+        check(server.reshard_count == 1 and server.monitor.alive_hosts()
+              == ["h0"] and server._interp.mesh.devices.size == 2,
+              f"server after losing h1: {server.reshard_count} reshards, "
+              f"mesh {server._interp.mesh.shape}")
+        futs = [server.submit(im) for im in xq]
+        after = np.stack([f.result(timeout=300) for f in futs])
+        ref32 = ref[torch.float32].cpu().numpy()
+        agree = int((after.argmax(-1) == ref32.argmax(-1)).sum())
+        check(agree == batch, f"server after the reshard: top-1 "
+              f"{agree}/{batch} against the Interpreter")
+        server.monitor.heartbeat("h1")
+        server.monitor.check_now()
+        check(server._interp.mesh.devices.size == 4 and
+              server.reshard_count == 2 and not server.degraded,
+              f"server after h1's recovery: mesh "
+              f"{server._interp.mesh.shape}")
+        stats = server.engine.stats
+    print(f"[multi] MultiHostServer on {where} (h0: slots 0-1, h1: slots "
+          f"2-3, tp 2, float32, batch {batch}): {len(requests)} requests "
+          f"equal to the direct forward on the (2, 2) mesh; h1 lost -> 1 "
+          f"reshard, mesh (1, 2), {batch} requests top-1 {agree}/{batch} "
+          f"against the Interpreter; h1 back -> "
+          f"mesh (2, 2); {stats.batches} batches, fill "
+          f"{stats.mean_batch_fill:.3f}, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # (d) launch_workers on the card.
+    artifact = os.path.join(tmp, "quicknet_multi.npz")
+    save_artifact(artifact, layers, "quicknet")
+    groups = ([("nccl", 2, "NCCL, 2 ranks on 2 cards")] if cards >= 2 else
+              [("nccl", 1, "NCCL, 1 rank on cuda:0"),
+               ("gloo", 2, "Gloo, 2 ranks on cuda:0, gathered through "
+                           "the host")])
+    t0 = time.perf_counter()
+    started = []
+    for backend, ranks, text in groups:
+        out_dir = os.path.join(tmp, f"workers_{backend}")
+        os.makedirs(out_dir)
+        started.append((text, launch_workers(
+            ranks, artifact=artifact, model="quicknet", out_dir=out_dir,
+            batch=8, seed=0, backend=backend, device=dev.type)))
+    x8 = np.random.default_rng(0).normal(
+        0, 1, (8, *spec.input_size, 3)).astype(np.float32)
+    want8 = packed_apply(spec, layers, x8, compute_dtype=torch.float32,
+                         device=dev).cpu().numpy()
+    for text, (procs, outs) in started:
+        for p in procs:
+            try:
+                log, _ = p.communicate(timeout=300)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            check(p.returncode == 0, f"worker ({text}) exited "
+                  f"{p.returncode}:\n{log.decode()[-2000:]}")
+        for out in outs:
+            got = np.load(out)
+            diff = float(np.abs(got - want8).max())
+            check(diff <= 1e-5 and (got.argmax(-1) == want8.argmax(-1)).all(),
+                  f"worker ({text}): max |diff| {diff} against the "
+                  "single-process float32 packed_apply")
+        print(f"[multi] launch_workers({len(procs)}) {text}: every rank holds "
+              f"the whole batch of 8, within {diff:.3g} (gate 1e-5) of the "
+              "single-process float32 packed_apply on the card, top-1 equal",
+              flush=True)
+    print(f"[multi] workers {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (e) The debug builds: silent and equal at the main-path shapes; each
+    # check trips on a broken call by raising; the context survives.
+    t0 = time.perf_counter()
+    blocks, gemms = [], []
+    for shape in QUICKNET_BLOCKS:
+        x, pf, tr = block_case(mrng, shape, dev, torch.bfloat16, False)
+        p = BConv2DParams(channels_in=shape[-1], padding=Padding.SAME,
+                          pad_value=1)
+        blocks.append((x, pf, tr, p, binary_residual_block(x, pf, tr, p)))
+    for _, m, kw, n, kind in ALEXNET_GEMMS:
+        lhs, rhs, kwargs = gemm_case(mrng, m, kw, n, kind, dev)
+        gemms.append((lhs, rhs, kwargs, bgemm(lhs, rhs, **kwargs)))
+    m, kw, n = RAGGED_GEMM
+    lhs, rhs, kwargs = gemm_case(mrng, m, kw, n, "bitpacked", dev)
+    splitk = (lhs, rhs, kwargs, bgemm(lhs, rhs, max_block_kw=SPLITK_BLOCK_KW,
+                                      **kwargs))
+    zeros_l = torch.zeros((m, kw), dtype=torch.int32, device=dev)
+    zeros_r = torch.zeros((kw, n), dtype=torch.int32, device=dev)
+    ones, ones_pf, ones_tr = block_case(mrng, (4, 14, 14, 64), dev,
+                                        torch.bfloat16, True)
+    ones = torch.ones_like(ones)
+    ones_pf = torch.zeros_like(ones_pf)  # all bits 0: every weight +1
+    ones_p = BConv2DParams(channels_in=64, padding=Padding.SAME, pad_value=1)
+    trips = []
+    with debug_checks():
+        for x, pf, tr, p, want in blocks:
+            check(torch.equal(binary_residual_block(x, pf, tr, p), want),
+                  f"debug build: residual_block {tuple(x.shape)} != the "
+                  "default build")
+        for lhs_, rhs_, kwargs_, want in gemms:
+            check(torch.equal(bgemm(lhs_, rhs_, **kwargs_), want),
+                  f"debug build: bgemm {tuple(lhs_.shape)} != the default "
+                  "build")
+        check(torch.equal(bgemm(splitk[0], splitk[1],
+                                max_block_kw=SPLITK_BLOCK_KW, **splitk[2]),
+                          splitk[3]), "debug build: split-K != default")
+        torch.cuda.synchronize()
+        trips.append(expect_trip(lambda: bgemm(
+            zeros_l, zeros_r, out_kind="accum",
+            _debug_total_bits=32 * kw - 32), "total_bits"))
+        trips.append(expect_trip(lambda: bgemm(
+            zeros_l, zeros_r, out_kind="accum", max_block_kw=SPLITK_BLOCK_KW,
+            _debug_total_bits=32 * kw - 32), "split-K"))
+        thr = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        trips.append(expect_trip(lambda: bgemm(
+            lhs, rhs, thresholds=thr, out_kind="bitpacked",
+            _debug_vote_n=128), "beyond N"))
+        trips.append(expect_trip(lambda: binary_residual_block(
+            ones, ones_pf, ones_tr, ones_p, _debug_k=9 * 64 - 32),
+            "one-padding"))
+    # The context is still usable: default-build calls give their results.
+    x, pf, tr, p, want = blocks[0]
+    check(torch.equal(binary_residual_block(x, pf, tr, p), want),
+          "after the trips: residual_block != its earlier result")
+    lhs_, rhs_, kwargs_, want = gemms[0]
+    check(torch.equal(bgemm(lhs_, rhs_, **kwargs_), want),
+          "after the trips: bgemm != its earlier result")
+    torch.cuda.synchronize()
+    print(f"[multi] debug builds: residual_block at the 4 QuickNet shapes, "
+          f"bgemm at the 6 BinaryAlexNet shapes and forced split-K raise "
+          f"nothing and equal the default build ({TOLERANCE}); tripped on "
+          f"purpose, each raised: {trips}; default-build calls after them "
+          f"still give their results; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    print(f"[multi] phase 7: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return paths
+
+
 def main():
     import torch
 
@@ -1266,7 +1763,8 @@ def main():
 
     # 1. Build.
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    # The kernels' debug builds too (phase 7): one nvcc each, all at once.
+    logs = _build.build_all(debug=("bgemm", "residual_block"))
     print(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in logs.items():
@@ -1316,6 +1814,10 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         return 0
     if "--train-only" in args:
         training_phase(dev, card)
+        return 0
+    if "--multi-only" in args:
+        print(json.dumps({"launches_by_path": multi_device_phase(dev, card,
+                                                                 tmp)}))
         return 0
 
     # 2. Kernel against its plain version.
@@ -1724,6 +2226,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     training_phase(dev, card)
     float32_phase(dev, card, bench)
 
+    # 7. The multi-device path.
+    sharded = multi_device_phase(dev, card, tmp)
+
     kernels = [{
         "name": "residual_block",
         "route": "cuda",
@@ -1737,7 +2242,8 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         "bound_by": bound_by,
         "library_ms": per_forward("library_ms"),
         "per": "one QuickNet batch-128 forward (16 launches)",
-        "launches_by_path": {k: v[0] for k, v in served.items()},
+        "launches_by_path": {k: v[0] for k, v in {**served,
+                                                   **sharded}.items()},
         "shapes": shapes,
     }, {
         "name": "bgemm",
@@ -1753,6 +2259,8 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         "library_ms": sum(g["library_ms"] for g in gemm_shapes),
         "per": "one packed-domain BinaryAlexNet batch-128 forward "
                "(6 launches)",
+        "launches_by_path": {k: v[1] for k, v in sharded.items()
+                             if " int8 " not in k},
         "shapes": gemm_shapes,
     }, {
         "name": "bgemm_int8",
@@ -1768,7 +2276,8 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         "library_ms": int8_per_forward("library_ms"),
         "per": "one QuickNet batch-128 forward in the int8 pipeline (16 "
                "launches of the same kernel with its int8 epilogue)",
-        "launches_by_path": {k: v[1] for k, v in served.items()},
+        "launches_by_path": {k: v[1] for k, v in {**served, **{
+            k: v for k, v in sharded.items() if " int8 " in k}}.items()},
         "shapes": int8_shapes,
     }, {
         "name": "bgemm_splitk",
@@ -1782,6 +2291,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         "bound_ms": splitk["bound_ms"],
         "bound_by": splitk["bound_by"],
         "library_ms": splitk["library_ms"],
+        "launches_by_path": {k: v[2] for k, v in sharded.items()},
         "per": f"one forced split-K call, M={m} KW={kw} N={n} float, "
                f"block_kw {SPLITK_BLOCK_KW} (no zoo shape reaches split-K; "
                "torch._int_mm does not take N % 8 != 0)",
@@ -1790,7 +2300,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     print(json.dumps({"mma_rates": mma_rates}))
     # (block, bgemm, split-K) launches of each path of phase 5, counted from
     # 0 just before the path to just after it.
-    print(json.dumps({"launches_by_path": served}))
+    print(json.dumps({"launches_by_path": {**served, **sharded}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -60,10 +60,19 @@
 //    block of K (the last one ragged) and writes int32 partial sums; a
 //    second kernel adds them in a fixed order, exactly, and runs the same
 //    epilogue.
+//  * Debug build (-DCE_DEBUG_CHECKS, debug_checks.cuh): the invariants of
+//    the Pallas kernels' pl.debug_check, as bits of an error word: every
+//    output's +-1 sum is bounded by the bits swept (bgemm.py:225-228); a
+//    block of K's, and the reduced sum's, by theirs (the big-K pad count,
+//    :284-287); no bit is set at or beyond N in a bitpacked word (the
+//    port's analogue of the lane-pack's uint16 range, :173-177, since the
+//    words here are ORed, not summed by a matmul). The default build
+//    compiles none of them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "debug_checks.cuh"
 #include "mma_binary.cuh"
 
 namespace {
@@ -75,6 +84,7 @@ constexpr int kStride = kBK + 4;   // words between rows of a stage
 constexpr int kStages = 2;
 constexpr int kMinBlocks = 3;      // blocks an SM should hold (register cap)
 constexpr int kColPad = 8;         // (KW, N) operand: pad of a row of columns
+constexpr int kMaxDevices = 64;    // cards a process may launch on
 
 enum Kind { kAccum = 0, kFloat = 1, kInt8 = 2, kBitpacked = 3, kPartial = 4 };
 
@@ -84,6 +94,9 @@ struct Epilogue {
   const int* thr;
   void* out;
   int M, N, cmin, cmax;
+#ifdef CE_DEBUG_CHECKS
+  int kw;  // words of K, for the reduced sum's bound
+#endif
 };
 
 // The float transform of one accumulator of channel n.
@@ -302,11 +315,23 @@ bgemm_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ B,
               const int n = n0 + col;
               const int x =
                   row_pop + col_pop[col] - 2 * acc[i][4 * w + jj][2 * h + q];
+#ifdef CE_DEBUG_CHECKS
+              if (m < M && n < N)
+                ce_debug::check_bound(x, 32 * KW, ce_debug::kGemmBound);
+              if (n < ce_debug::votes_up_to(N) && x > e.thr[min(n, N - 1)])
+                word |= 1u << (8 * jj + 2 * t + q);
+#else
               if (n < N && x > e.thr[n]) word |= 1u << (8 * jj + 2 * t + q);
+#endif
             }
           }
           word |= __shfl_xor_sync(0xffffffffu, word, 1);
           word |= __shfl_xor_sync(0xffffffffu, word, 2);
+#ifdef CE_DEBUG_CHECKS
+          const int valid = N - (n0 + 32 * w);  // channels of this word < N
+          if (t == 0 && m < M && valid > 0 && valid < 32 && (word >> valid))
+            ce_debug::fail(ce_debug::kPaddingBits);
+#endif
           if (t == 0 && m < M && n0 + 32 * w < N)
             static_cast<uint32_t*>(e.out)[(size_t)m * ((N + 31) / 32) +
                                           n0 / 32 + w] = word;
@@ -320,6 +345,13 @@ bgemm_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ B,
             const int n = n0 + col;
             if (m >= M || n >= N) continue;
             const int x = row_pop + col_pop[col] - 2 * acc[i][j][2 * h + q];
+#ifdef CE_DEBUG_CHECKS
+            if constexpr (KIND == kPartial)
+              ce_debug::check_bound(x, 32 * (k_end - k_begin),
+                                    ce_debug::kSplitKBound);
+            else
+              ce_debug::check_bound(x, 32 * KW, ce_debug::kGemmBound);
+#endif
             if constexpr (KIND == kPartial)
               partial[((size_t)blockIdx.z * M + m) * N + n] = x;
             else
@@ -348,9 +380,21 @@ splitk_reduce_kernel(const int* __restrict__ partial, int num_k, Epilogue e) {
   if (n < e.N)
     for (int z = 0; z < num_k; ++z)
       acc += partial[((size_t)z * e.M + m) * e.N + n];
+#ifdef CE_DEBUG_CHECKS
+  if (n < e.N) ce_debug::check_bound(acc, 32 * e.kw, ce_debug::kSplitKBound);
+#endif
   if constexpr (KIND == kBitpacked) {
+#ifdef CE_DEBUG_CHECKS
+    const unsigned word = __ballot_sync(
+        0xffffffffu,
+        n < ce_debug::votes_up_to(e.N) && acc > e.thr[min(n, e.N - 1)]);
+    const int valid = e.N - n32;
+    if (lane == 0 && valid < 32 && (word >> valid))
+      ce_debug::fail(ce_debug::kPaddingBits);
+#else
     const unsigned word =
         __ballot_sync(0xffffffffu, n < e.N && acc > e.thr[n]);
+#endif
     if (lane == 0)
       static_cast<uint32_t*>(e.out)[(size_t)m * groups + n32 / 32] = word;
   } else {
@@ -377,12 +421,18 @@ int launch_tile(const uint32_t* A, const uint32_t* B, int M, int N, int KW,
   const int a_vec = reinterpret_cast<uintptr_t>(A) % 16 == 0;
   const int b_vec = reinterpret_cast<uintptr_t>(B) % 16 == 0;
   auto kernel = bgemm_kernel<MT, NT, KIND>;
-  static bool configured = smem <= 48 * 1024;  // once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // Once per instantiation and device: the attribute is the current
+  // device's.
+  static bool configured[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && !configured[device]) {
+    err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[device] = true;
   }
   kernel<<<grid, kThreads, smem, s>>>(A, B, M, N, KW, block_kw, b_n_major,
                                       a_vec, b_vec, e, partial);
@@ -437,10 +487,11 @@ extern "C" int ce_bgemm(const void* a, const void* b, const void* mul,
     return (int)cudaErrorInvalidValue;
   if (kind == kBitpacked && thr == nullptr) return (int)cudaErrorInvalidValue;
   if (m == 0 || n == 0) return 0;
-  const Epilogue e{static_cast<const float*>(mul),
-                   static_cast<const float*>(bias),
-                   static_cast<const int*>(thr), out, m, n, clamp_min,
-                   clamp_max};
+  Epilogue e{static_cast<const float*>(mul), static_cast<const float*>(bias),
+             static_cast<const int*>(thr), out, m, n, clamp_min, clamp_max};
+#ifdef CE_DEBUG_CHECKS
+  e.kw = kw;
+#endif
   const uint32_t* A = static_cast<const uint32_t*>(a);
   const uint32_t* B = static_cast<const uint32_t*>(b);
   int* P = static_cast<int*>(partial);

@@ -49,11 +49,16 @@
 //    chain, so the kernel equals its plain PyTorch version bit for bit.
 //  * Registers are capped at 128 a thread (16 warps an SM), of which 64 are
 //    accumulators.
+//  * Debug build (-DCE_DEBUG_CHECKS, debug_checks.cuh): the invariant of the
+//    Pallas kernel's pl.debug_check (residual.py:118-120), |t| <= K = 9 C
+//    for the +-1 conv t of every output channel < C_out, as a bit of an
+//    error word. The default build compiles none of it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "debug_checks.cuh"
 #include "mma_binary.cuh"
 
 namespace {
@@ -65,6 +70,7 @@ constexpr int kMinWarps = 16;    // warps an SM should hold: caps registers at 1
 constexpr int kStageStride = kBN + 8;  // staging row, in elements
 constexpr int kSignLoads = 4;    // 16-byte loads a thread has in flight when
 constexpr int kStoreLoads = 4;   // it signs the band / reads x for the add
+constexpr int kMaxDevices = 64;  // cards a process may launch on
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -356,6 +362,15 @@ residual_block_kernel(const T* __restrict__ x,
               min(max(rp + cp0 - 4 * acc[i][j][2 * h], cmin), cmax);
           const int a1 =
               min(max(rp + cp1 - 4 * acc[i][j][2 * h + 1], cmin), cmax);
+#ifdef CE_DEBUG_CHECKS
+          // xor-popcount of the 9 C real bits: (2 acc) / 2 before the clip
+          if (co < s.CO)
+            ce_debug::check_bound((rp + cp0) / 2 - 2 * acc[i][j][2 * h],
+                                  9 * s.C, ce_debug::kResidualBound);
+          if (co + 1 < s.CO)
+            ce_debug::check_bound((rp + cp1) / 2 - 2 * acc[i][j][2 * h + 1],
+                                  9 * s.C, ce_debug::kResidualBound);
+#endif
           store2(stage +
                      (warp * 16 * kMT + 16 * i + g + 8 * h) * kStageStride +
                      col,
@@ -448,12 +463,18 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
   const int vec_out = s.CO % 8 == 0 && aligned(out) && (!kResidual || vec_x);
 
   auto kernel = residual_block_kernel<T, kResidual, WARPS>;
-  static size_t allowed = 48 * 1024;  // raised once per instantiation
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // Raised once per instantiation and device: the attribute is the current
+  // device's.
+  static size_t allowed[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > allowed[device]) {
+    e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    allowed = smem;
+    allowed[device] = smem;
   }
   const dim3 grid((unsigned)blocks);
   kernel<<<grid, 32 * WARPS, smem, stream>>>(

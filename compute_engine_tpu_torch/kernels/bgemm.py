@@ -27,6 +27,11 @@ Contract (that of the JAX ``bgemm``):
 Channel-padding bits are 0 in both operands and add nothing to any popcount.
 The float epilogue rounds the product and the sum separately (no FMA), so
 the kernel equals the plain version bit for bit.
+
+Inside ``kernels.debug_checks()`` the kernel's debug build runs, and the
+plain version checks, the invariants of the Pallas kernels' debug checks
+(``kernels/debug.py``): ``|t| <= total_bits`` (one pass; split-K), and no
+bit at or beyond N in a bitpacked word.
 """
 
 from __future__ import annotations
@@ -38,9 +43,10 @@ import torch
 
 from ..core.bitpack import bitpack, bitunpack
 from ..core.types import BITWIDTH, PACKED_DTYPE, ceil_div
+from . import debug
 
 __all__ = ["bgemm", "bgemm_plain", "plan_bgemm", "uses_split_k", "OUT_KINDS",
-           "MAX_BLOCK_KW"]
+           "MAX_BLOCK_KW", "check_padding_bits"]
 
 SM_COUNT = 132                 # H100 SXM
 _STAGES, _STAGE_KW, _ROW_STRIDE, _COLUMN_PAD = 2, 32, 36, 8
@@ -90,23 +96,45 @@ def _epilogue(accum, mul, bias, thresholds, clamp_min, clamp_max, out_kind):
 
 def bgemm_plain(lhs, rhs, multiplier=None, bias=None, thresholds=None, *,
                 clamp_min: int = CLAMP_MIN_DEFAULT,
-                clamp_max: int = CLAMP_MAX_DEFAULT, out_kind: str = "float"):
+                clamp_max: int = CLAMP_MAX_DEFAULT, out_kind: str = "float",
+                _debug_total_bits=None):
     """Plain PyTorch version of ``bgemm``.
 
     Unpacks both operands to +-1 float32 and multiplies them: every partial
     sum is an integer of magnitude at most 32*KW < 2**24, exact in float32
     in any order, and +-1 is exact in TF32 too. Then
     ``accum = (32*KW - t) / 2`` and the epilogue of ``out_kind``.
+
+    Inside ``kernels.debug_checks()`` it holds the kernel's invariants:
+    ``|t| <= total_bits`` (named as split-K's where the kernel splits K at
+    its default depth; ``_debug_total_bits`` declares a wrong one, as the
+    kernel's does) and no bit at or beyond N in a bitpacked word
+    (``check_padding_bits``).
     """
+    debug.require_enabled(_debug_total_bits=_debug_total_bits)
     m, kw = lhs.shape
     n = rhs.shape[1]
     a = bitunpack(lhs, BITWIDTH * kw, dtype=torch.float32)
     b = bitunpack(rhs.t(), BITWIDTH * kw, dtype=torch.float32)  # (N, 32KW)
     t = (a @ b.t()).to(torch.int32)
+    if debug.enabled() and bool(
+            (t.abs() > (_debug_total_bits or BITWIDTH * kw)).any()):
+        debug.raise_for(2 if uses_split_k(kw) else 1)
     accum = (BITWIDTH * kw - t) // 2
     mul, bias_, thr = _operands(multiplier, bias, thresholds, n, lhs.device,
                                 out_kind)
-    return _epilogue(accum, mul, bias_, thr, clamp_min, clamp_max, out_kind)
+    out = _epilogue(accum, mul, bias_, thr, clamp_min, clamp_max, out_kind)
+    if out_kind == "bitpacked":
+        check_padding_bits(out, n)
+    return out
+
+
+def check_padding_bits(words, n: int) -> None:
+    """Inside ``kernels.debug_checks()``: raise if a bitpacked (M, ceil(N/32))
+    output has a bit set at or beyond channel ``n`` of its last word."""
+    if (debug.enabled() and n % BITWIDTH
+            and bool((words[:, -1] >> (n % BITWIDTH)).any())):
+        debug.raise_for(4)
 
 
 def _operands(multiplier, bias, thresholds, n, device, out_kind):
@@ -141,10 +169,10 @@ def plan_bgemm(m: int, n: int, kw: int, block_kw: int) -> dict:
             "smem_bytes": 4 * _STAGES * stage}
 
 
-def _library():
+def _library(debug_build=False):
     from ._build import load
 
-    lib = load("bgemm")
+    lib = load("bgemm", debug_build)
     fn = lib.ce_bgemm
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -157,7 +185,7 @@ def _library():
 
 
 def _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min, clamp_max,
-            out_kind, max_block_kw):
+            out_kind, max_block_kw, debug_total_bits=None, debug_vote_n=None):
     if lhs.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, not "
                          f"{lhs.device}")
@@ -189,31 +217,40 @@ def _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min, clamp_max,
                          f"{block_kw} words exceeds the grid: {plan}")
     partial = (torch.empty((num_k, m, n), dtype=torch.int32,
                            device=lhs.device) if num_k > 1 else None)
-    lib = _library()
+    checked = debug.enabled()
+    lib = _library(checked)
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = lib.ce_bgemm(
-        lhs.data_ptr(), b.data_ptr(), ptr(mul), ptr(bias_), ptr(thr),
-        out.data_ptr(), ptr(partial), m, n, kw, block_kw, b_n_major,
-        int(plan["tile"] == (64, 32)), plan["blocks"], plan["smem_bytes"],
-        _KIND_CODES[out_kind], int(clamp_min), int(clamp_max), stream)
-    if rc != 0:
-        raise RuntimeError("bgemm kernel launch failed: "
-                           + lib.ce_error_string(rc).decode())
-    if uses_split_k(kw, max_block_kw):
-        bgemm.splitk_launches += 1
-    else:
-        bgemm.launches += 1
+    # The launch goes to the operands' card, whichever is current.
+    with torch.cuda.device(lhs.device):
+        if checked:
+            debug.begin(lib, stream, debug_total_bits, debug_vote_n)
+        rc = lib.ce_bgemm(
+            lhs.data_ptr(), b.data_ptr(), ptr(mul), ptr(bias_), ptr(thr),
+            out.data_ptr(), ptr(partial), m, n, kw, block_kw, b_n_major,
+            int(plan["tile"] == (64, 32)), plan["blocks"],
+            plan["smem_bytes"], _KIND_CODES[out_kind], int(clamp_min),
+            int(clamp_max), stream)
+        if rc != 0:
+            raise RuntimeError("bgemm kernel launch failed: "
+                               + lib.ce_error_string(rc).decode())
+        if uses_split_k(kw, max_block_kw):
+            bgemm.splitk_launches += 1
+        else:
+            bgemm.launches += 1
+        if checked:
+            debug.end(lib, stream)
     return out
 
 
 def bgemm(lhs, rhs, multiplier=None, bias=None, thresholds=None, *,
           clamp_min: int = CLAMP_MIN_DEFAULT,
           clamp_max: int = CLAMP_MAX_DEFAULT, out_kind: str = "float",
-          max_block_kw: int = MAX_BLOCK_KW):
+          max_block_kw: int = MAX_BLOCK_KW, _debug_total_bits=None,
+          _debug_vote_n=None):
     """Binary GEMM on packed words with the fused output transform.
 
     Args:
@@ -229,7 +266,10 @@ def bgemm(lhs, rhs, multiplier=None, bias=None, thresholds=None, *,
     Returns (M, N) float32 / int8 / int32, or (M, ceil(N/32)) int32 words.
     CPU tensors take ``bgemm_plain``. CUDA tensors take the kernel, which
     counts its one-pass launches in ``bgemm.launches`` and its split-K
-    launches in ``bgemm.splitk_launches``.
+    launches in ``bgemm.splitk_launches``; inside ``kernels.debug_checks()``
+    its debug build, which raises ``RuntimeError`` for a broken invariant.
+    ``_debug_total_bits`` (a declared bit count) and ``_debug_vote_n`` (the
+    kernel votes past N) break the accounting on purpose there.
     """
     if out_kind not in OUT_KINDS:
         raise ValueError(f"unknown out_kind {out_kind!r}; expected one of "
@@ -241,14 +281,21 @@ def bgemm(lhs, rhs, multiplier=None, bias=None, thresholds=None, *,
         raise TypeError("bgemm operands must be int32 packed words")
     if max_block_kw < 1:
         raise ValueError("max_block_kw must be positive")
+    debug.require_enabled(_debug_total_bits=_debug_total_bits,
+                          _debug_vote_n=_debug_vote_n)
     if lhs.device.type == "cpu":
+        if _debug_vote_n is not None:
+            raise ValueError("_debug_vote_n breaks the kernel's vote loop; "
+                             "the plain version has none to break")
         return bgemm_plain(lhs, rhs, multiplier, bias, thresholds,
                            clamp_min=clamp_min, clamp_max=clamp_max,
-                           out_kind=out_kind)
+                           out_kind=out_kind,
+                           _debug_total_bits=_debug_total_bits)
     if lhs.device.type != "cuda":
         raise ValueError(f"no bgemm kernel for device {lhs.device}")
     return _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min,
-                   clamp_max, out_kind, max_block_kw)
+                   clamp_max, out_kind, max_block_kw, _debug_total_bits,
+                   _debug_vote_n)
 
 
 bgemm.launches = 0

@@ -20,6 +20,10 @@ rounds to the activation type, and adds ``x`` with one more rounding, as the
 unfused "store, then add" chain does. The kernel therefore equals the plain
 version bit for bit; against JAX it may differ by one FMA rounding, as
 JAX's own fused and unfused paths do.
+
+Inside ``kernels.debug_checks()`` the kernel's debug build runs, and the
+plain version checks, the Pallas kernel's debug invariant ``|t| <= K``
+(K = 9 C) for the +-1 conv ``t`` (``kernels/debug.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from ..core.params import BConv2DParams
 from ..core.transforms import OutputTransform
 from ..core.types import Padding
+from . import debug
 from .bconv2d import bconv2d_mxu_float_in
 
 __all__ = ["binary_residual_block", "binary_residual_block_plain",
@@ -61,13 +66,33 @@ def residual_block_supported(x_shape, params: BConv2DParams, c_out: int,
 
 def binary_residual_block_plain(x, packed_filter, transform: OutputTransform,
                                 params: BConv2DParams, has_residual=True,
-                                unpacked_filter=None):
+                                unpacked_filter=None, _debug_k=None):
     """Plain PyTorch version: the unfused conv, rounded to ``x.dtype``, plus
-    ``x``."""
+    ``x``. Inside ``kernels.debug_checks()`` it also holds ``|t| <= K``
+    (``_debug_k`` declares a K other than 9 C, as the kernel's does)."""
+    debug.require_enabled(_debug_k=_debug_k)
+    if debug.enabled():
+        _check_conv_bound(x, packed_filter, params, unpacked_filter, _debug_k)
     y = bconv2d_mxu_float_in(x, packed_filter, transform, params,
                              output_kind="float",
                              unpacked_filter=unpacked_filter).to(x.dtype)
     return x + y if has_residual else y
+
+
+def _check_conv_bound(x, packed_filter, params, unpacked_filter, declared_k):
+    """``|t| <= K`` for the +-1 conv ``t``: through the identity transform
+    the float output is ``2 accum = 9 C - t``, exact in float32."""
+    c_out = packed_filter.shape[0]
+    identity = OutputTransform(
+        multiplier=torch.ones(c_out, dtype=torch.float32, device=x.device),
+        bias=torch.zeros(c_out, dtype=torch.float32, device=x.device))
+    two_accum = bconv2d_mxu_float_in(x, packed_filter, identity, params,
+                                     output_kind="float",
+                                     unpacked_filter=unpacked_filter)
+    k = 9 * x.shape[-1]
+    t = k - two_accum
+    if bool((t.abs() > (declared_k or k)).any()):
+        debug.raise_for(8)
 
 
 def plan_residual_block(n: int, h: int, w: int, c: int, c_out: int,
@@ -117,10 +142,10 @@ def _choose_blocks(positions: int, n_tiles: int) -> tuple[int, int]:
     return (4 if blocks(4) >= SM_COUNT else 2), tiles_per_block
 
 
-def _library():
+def _library(debug_build=False):
     from ._build import load
 
-    lib = load("residual_block")
+    lib = load("residual_block", debug_build)
     fn = lib.ce_residual_block
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
@@ -131,9 +156,11 @@ def _library():
     return lib
 
 
-def _launch(x, packed_filter, transform, has_residual, block=None):
+def _launch(x, packed_filter, transform, has_residual, block=None,
+            debug_k=None):
     """Launches the kernel. ``block`` is (warps, tiles_per_block) in place
-    of the planner's choice, for a sweep over block sizes."""
+    of the planner's choice, for a sweep over block sizes; ``debug_k`` is
+    the K that the debug build holds ``|t|`` to (9 C by default)."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, not {x.device}")
     n, h, w, c = x.shape
@@ -164,24 +191,32 @@ def _launch(x, packed_filter, transform, has_residual, block=None):
         raise ValueError(f"residual block {tuple(x.shape)} -> {c_out} "
                          f"channels does not fit the kernel: {plan}")
     out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
-    lib = _library()
+    checked = debug.enabled()
+    lib = _library(checked)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.ce_residual_block(
-        x.data_ptr(), packed_filter.data_ptr(), mul.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), n, h, w, c, c_out,
-        int(transform.clamp_min), int(transform.clamp_max),
-        int(has_residual), _DTYPE_CODES[x.dtype], plan["warps"],
-        plan["tiles_per_block"], plan["blocks"], plan["smem_bytes"], stream)
-    if rc != 0:
-        raise RuntimeError("residual block kernel launch failed: "
-                           + lib.ce_error_string(rc).decode())
-    binary_residual_block.launches += 1
+    # The launch goes to the activation's card, whichever is current.
+    with torch.cuda.device(x.device):
+        if checked:
+            debug.begin(lib, stream, declared_bits=debug_k)
+        rc = lib.ce_residual_block(
+            x.data_ptr(), packed_filter.data_ptr(), mul.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), n, h, w, c, c_out,
+            int(transform.clamp_min), int(transform.clamp_max),
+            int(has_residual), _DTYPE_CODES[x.dtype], plan["warps"],
+            plan["tiles_per_block"], plan["blocks"], plan["smem_bytes"],
+            stream)
+        if rc != 0:
+            raise RuntimeError("residual block kernel launch failed: "
+                               + lib.ce_error_string(rc).decode())
+        binary_residual_block.launches += 1
+        if checked:
+            debug.end(lib, stream)
     return out
 
 
 def binary_residual_block(x, packed_filter, transform: OutputTransform,
                           params: BConv2DParams, has_residual=True,
-                          unpacked_filter=None):
+                          unpacked_filter=None, _debug_k=None):
     """``x + float_transform(bconv3x3_onepad(sign(x)))`` in one kernel.
 
     Args:
@@ -194,7 +229,9 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
 
     Returns (N, H, W, C_out) in ``x.dtype``. CPU tensors take the plain
     version; CUDA tensors take the kernel, which counts its launches in
-    ``binary_residual_block.launches``.
+    ``binary_residual_block.launches``; inside ``kernels.debug_checks()``
+    its debug build, which raises ``RuntimeError`` when ``|t| > K``.
+    ``_debug_k`` declares a wrong K there, on purpose.
     """
     c_out, fh, fw, _ = packed_filter.shape
     if not residual_block_supported(x.shape, params, c_out, fh, fw,
@@ -202,13 +239,15 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
         raise ValueError("fused residual block unsupported for "
                          f"shape {tuple(x.shape)} / filter "
                          f"{tuple(packed_filter.shape)}")
+    debug.require_enabled(_debug_k=_debug_k)
     if x.device.type == "cpu":
         return binary_residual_block_plain(x, packed_filter, transform,
                                            params, has_residual,
-                                           unpacked_filter)
+                                           unpacked_filter, _debug_k)
     if x.device.type != "cuda":
         raise ValueError(f"no residual block kernel for device {x.device}")
-    return _launch(x, packed_filter, transform, has_residual)
+    return _launch(x, packed_filter, transform, has_residual,
+                   debug_k=_debug_k)
 
 
 binary_residual_block.launches = 0

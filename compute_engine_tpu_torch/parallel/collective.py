@@ -1,0 +1,275 @@
+"""Explicit collectives for tensor-parallel binary convolution: the
+counterpart of ``compute_engine_tpu.parallel.collective``.
+
+Three TP execution modes over the "model" mesh axis (filters sharded on
+output channels):
+
+  gather     activations replicated; each slot computes its channel slice,
+             then the slices are gathered on every slot (an all-gather:
+             each slot receives the others' slices) and concatenated.
+  sharded    like gather but returns the channel-sharded output, each slot
+             ``c_out / S`` wide, for chaining into ops that consume shards.
+  pipelined  activations sharded on BATCH over the same axis; the packed
+             weight shards (32x compressed, far cheaper to move than
+             activations) rotate around the ring while each slot convolves
+             the shard it holds. Step t's copy to the next slot runs on a
+             side stream, with an event for the wait, so it can overlap the
+             conv of step t. No all-gather anywhere (the collective log shows
+             it). Output: batch-sharded, full channels.
+
+One process drives every slot (``parallel.mesh``): a collective is a copy
+between slots, ``Tensor.to(device, non_blocking=True)``, which PyTorch
+orders against both cards' current streams and which goes peer to peer over
+NVLink between two cards of a host; between two slots of one device it is a
+local copy. JAX's shard_map proves the layout in its compiled program (an
+HLO check); here every copy between slots is recorded in ``log``, a list
+the caller passes (``record``: one schema for this module and
+``parallel.partition``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.params import BConv2DParams
+from ..core.transforms import OutputTransform
+from ..kernels.bgemm import bgemm
+from ..ops import bconv2d
+from .sharding import NamedSharding, ShardedTensor, device_put
+
+__all__ = ["tp_bconv2d", "record", "to_slot", "all_gather"]
+
+
+def tp_bconv2d(packed_input, packed_filter, transform: OutputTransform,
+               params: BConv2DParams, mesh, axis: str = "model",
+               output_kind: str = "float", kernel: str = "auto",
+               mode: str = "gather", gemm=bgemm, log=None):
+    """Tensor-parallel bconv2d over ``mesh``'s ``axis``.
+
+    Args:
+      packed_input: (N, H, W, Cp) int32 words, replicated over ``axis``.
+      packed_filter: (O, FH, FW, Cpg) int32 words, global view: axis 0 is
+        split over ``axis`` (O must be divisible by the axis size).
+      transform: global-view output transform (per-channel arrays are split
+        with the filter).
+      mode: "gather" (replicated output), "sharded" (channel-sharded) or
+        "pipelined" (batch-sharded input and output, weights on a ring).
+      kernel, gemm: the lowering and the binary GEMM of every slot's
+        ``ops.bconv2d``.
+      log: a list that receives one record per copy between slots.
+
+    Returns a ``ShardedTensor``: (N, OH, OW, C_out) replicated [gather],
+    channel-sharded [sharded] or batch-sharded [pipelined] (C_out / 32 words
+    for bitpacked output); ``.join()`` assembles it.
+    """
+    n_shards = mesh.shape[axis]
+    c_out = packed_filter.shape[0]
+    if c_out % n_shards:
+        raise ValueError(f"channels_out {c_out} not divisible by mesh axis "
+                         f"{axis} of size {n_shards}")
+    if mode == "pipelined":
+        return _tp_bconv2d_pipelined(packed_input, packed_filter, transform,
+                                     params, mesh, axis, output_kind, kernel,
+                                     gemm, log)
+    if mode not in ("gather", "sharded"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if output_kind == "bitpacked" and (c_out // n_shards) % 32:
+        # Each shard packs its own channel slice into whole words; a partial
+        # word per shard would interleave padding bits into the gathered
+        # result (the reference's byte-aligned threaded bitpacked writes,
+        # `core/bgemm/kernels_common.h:82-95`).
+        raise ValueError(
+            "bitpacked TP output requires channels_out per shard to be a "
+            f"multiple of 32; got {c_out // n_shards}")
+    arrays, local_transform = _transform_arrays(transform)
+    x = device_put(packed_input, NamedSharding(mesh, ()))
+    w = device_put(packed_filter, NamedSharding(mesh, (axis, None, None,
+                                                       None)))
+    t = [device_put(a, NamedSharding(mesh, (axis,))) for a in arrays]
+    ys = [bconv2d(x.shards[i], w.shards[i],
+                  local_transform([a.shards[i] for a in t]), params,
+                  output_kind=output_kind, kernel=kernel, gemm=gemm)
+          for i in range(mesh.size)]
+    local = ys[0].shape
+    if mode == "sharded":
+        return ShardedTensor(mesh, (None, None, None, axis), ys,
+                             (*local[:-1], local[-1] * n_shards))
+    out = []
+    for idx, _ in mesh.slots():
+        ring = _ring(mesh, idx, axis)
+        out.append(all_gather([ys[_flat(mesh, peer)] for peer in ring], ring,
+                              idx, mesh, log))
+    return ShardedTensor(mesh, (), out, out[0].shape)
+
+
+def _tp_bconv2d_pipelined(packed_input, packed_filter, transform, params,
+                          mesh, axis, output_kind, kernel, gemm, log):
+    """Weight-rotation ring TP: batch-sharded x, filter shards on a ring.
+
+    Each slot holds a batch slice of the activations and one out-channel
+    shard of the packed filter (+ its per-channel transform slice). Over S
+    ring steps it convolves the shard it currently holds while the next
+    shard is already on its way:
+
+        for t in 0..S-1:
+            start copy(filter, transforms) -> slot (j + 1) % S   (side stream)
+            y[shard (me - t) % S] = bconv2d(x_local, filter_held)
+            wait for the copy (event)
+
+    The conv at step t and the copy for step t+1 have no data dependency.
+    The rotated payload is the 32x-bitpacked filter + its O/S-long transform
+    vectors, far smaller than the activations a gather-based TP would move.
+    Output is batch-sharded with full channels, composing with the DP input
+    sharding.
+    """
+    n_shards = mesh.shape[axis]
+    c_out = packed_filter.shape[0]
+    per = c_out // n_shards
+    n = packed_input.shape[0]
+    if n % n_shards:
+        raise ValueError(f"pipelined TP shards the batch: batch {n} not "
+                         f"divisible by mesh axis {axis} of size {n_shards}")
+    if output_kind == "bitpacked" and per % 32:
+        raise ValueError(
+            "bitpacked pipelined TP requires channels_out per shard to be a "
+            f"multiple of 32; got {per}")
+    arrays, local_transform = _transform_arrays(transform)
+    x = device_put(packed_input, NamedSharding(mesh, (axis,)))
+    w = device_put(packed_filter, NamedSharding(mesh, (axis, None, None,
+                                                       None)))
+    t = [device_put(a, NamedSharding(mesh, (axis,))) for a in arrays]
+    sides = {}  # a side stream per card that sends
+    out = [None] * mesh.size
+    for idx, _ in mesh.slots():
+        if idx[mesh.axis_names.index(axis)]:
+            continue  # one ring per line of slots along the axis
+        ring = _ring(mesh, idx, axis)
+        slots = [_flat(mesh, r) for r in ring]
+        devs = [mesh.devices[r] for r in ring]
+        held = [(w.shards[i], *(a.shards[i] for a in t)) for i in slots]
+        pieces = [[] for _ in ring]
+        for step in range(n_shards):
+            sent = None
+            if step < n_shards - 1:
+                sent = [_send(held[j], ring[j], ring[(j + 1) % n_shards],
+                              mesh, sides, log)
+                        for j in range(n_shards)]
+            for j, i in enumerate(slots):
+                w_t, *tr_t = held[j]
+                pieces[j].append(bconv2d(
+                    x.shards[i], w_t, local_transform(tr_t), params,
+                    output_kind=output_kind, kernel=kernel, gemm=gemm))
+            if sent is not None:
+                # Slot j + 1 receives what slot j sent.
+                held = [_receive(*sent[(j - 1) % n_shards], devs[j])
+                        for j in range(n_shards)]
+        for j, i in enumerate(slots):
+            # pieces[t] is the slice owned by shard (me - t) % S; reversed,
+            # the concat runs ascending from shard (me + 1) % S, so one
+            # channel roll places every slice at its global offset.
+            full = torch.cat(pieces[j][::-1], dim=-1)
+            width = full.shape[-1]  # c_out, or c_out/32 packed words
+            out[i] = torch.roll(full, (j + 1) * (width // n_shards),
+                                dims=-1)
+    local = out[0].shape
+    return ShardedTensor(mesh, (axis,), out, (local[0] * n_shards,
+                                              *local[1:]))
+
+
+def _transform_arrays(transform: OutputTransform):
+    """The per-channel arrays of ``transform`` as tensors, and a function
+    that builds a slot's transform from its slices of them."""
+    if transform.thresholds is not None:
+        def local(arrs):
+            return OutputTransform(thresholds=arrs[0])
+
+        return [_as_tensor(transform.thresholds)], local
+
+    def local(arrs):
+        return OutputTransform(clamp_min=transform.clamp_min,
+                               clamp_max=transform.clamp_max,
+                               multiplier=arrs[0], bias=arrs[1])
+
+    return [_as_tensor(transform.multiplier),
+            _as_tensor(transform.bias)], local
+
+
+def _as_tensor(a):
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.array(a, order="C"))
+
+
+def _flat(mesh, idx) -> int:
+    return int(np.ravel_multi_index(idx, mesh.devices.shape))
+
+
+def _ring(mesh, idx, axis):
+    """The slots that share ``idx``'s coordinates on every axis but
+    ``axis``, in ring order."""
+    k = mesh.axis_names.index(axis)
+    return [tuple(idx[:k]) + (j,) + tuple(idx[k + 1:])
+            for j in range(mesh.shape[axis])]
+
+
+def record(log, kind, tensors, src, dst, mesh):
+    """Append one copy between slots to ``log`` when it is a list:
+    ``{"kind", "bytes", "src", "dst", "local"}``, with the two slots' grid
+    coordinates and ``local`` when both slots are one device (a local copy,
+    or none). ``kind`` is "all_gather", "ppermute" or "broadcast"."""
+    if log is not None:
+        log.append({"kind": kind, "src": src, "dst": dst,
+                    "bytes": sum(t.numel() * t.element_size()
+                                 for t in tensors),
+                    "local": mesh.devices[src] == mesh.devices[dst]})
+
+
+def to_slot(t, src, dst, mesh, log=None, kind="broadcast"):
+    """``t``, held by slot ``src``, on slot ``dst``'s device: recorded as
+    ``kind`` unless the two slots are one. PyTorch orders the copy against
+    both devices' current streams; between slots of one device the tensor
+    is used where it lies."""
+    if src != dst:
+        record(log, kind, [t], src, dst, mesh)
+    return t.to(mesh.devices[dst], non_blocking=True)
+
+
+def all_gather(pieces, srcs, dst, mesh, log=None, dim=-1):
+    """The ``pieces`` that slots ``srcs`` hold, concatenated along ``dim``
+    on slot ``dst``: one "all_gather" record per piece from another slot."""
+    return torch.cat([to_slot(p, s, dst, mesh, log, "all_gather")
+                      for p, s in zip(pieces, srcs)], dim=dim)
+
+
+def _send(tensors, src, dst, mesh, sides, log):
+    """Start copying ``tensors`` from slot ``src`` to slot ``dst``: on a
+    side stream of the sending card, after what that card's current stream
+    has queued, with an event to wait for. Returns (copies, event)."""
+    record(log, "ppermute", tensors, src, dst, mesh)
+    src_dev, dst_dev = mesh.devices[src], mesh.devices[dst]
+    if src_dev.type != "cuda":
+        return [t.to(dst_dev) if dst_dev != src_dev else t.clone()
+                for t in tensors], None
+    side = sides.get(src_dev)
+    if side is None:
+        side = sides[src_dev] = torch.cuda.Stream(device=src_dev)
+    side.wait_stream(torch.cuda.current_stream(src_dev))
+    with torch.cuda.stream(side):
+        copies = [t.to(dst_dev, non_blocking=True) if dst_dev != src_dev
+                  else t.clone() for t in tensors]
+        for t in tensors:
+            t.record_stream(side)  # read there: not reused before the copy
+        event = torch.cuda.Event()
+        event.record(side)
+    return copies, event
+
+
+def _receive(copies, event, dev):
+    """Make ``dev``'s current stream wait for the copy; the copies are then
+    used there."""
+    if event is not None:
+        stream = torch.cuda.current_stream(dev)
+        stream.wait_event(event)
+        for t in copies:
+            t.record_stream(stream)
+    return tuple(copies)

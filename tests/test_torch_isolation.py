@@ -37,7 +37,10 @@ print(sorted(names))
 NEW_MODULES = ["converter.cli", "converter.graph_import",
                "converter.keras_import", "ops.detection", "runtime.evaluate",
                "runtime.health", "runtime.serving", "utils", "utils.native",
-               "utils.profiling"]
+               "utils.profiling", "kernels.debug", "parallel",
+               "parallel.mesh", "parallel.sharding", "parallel.collective",
+               "parallel.partition", "runtime.distributed_serving",
+               "runtime.multiprocess"]
 
 
 def test_port_imports_no_jax():
@@ -256,3 +259,35 @@ def test_bgemm_has_no_fallback_for_other_devices():
     lhs, rhs = _gemm_args("meta")
     with pytest.raises(ValueError, match="no bgemm kernel"):
         bgemm_mod.bgemm(lhs, rhs, out_kind="accum")
+
+
+def test_multi_device_entry_points_raise_without_card(tmp_path):
+    """A mesh, a sharded interpreter and a multi-host server default to the
+    visible cards and raise without one; a worker asked for the card raises
+    rather than run on the CPU."""
+    _no_card()
+    from compute_engine_tpu_torch.converter import save_artifact
+    from compute_engine_tpu_torch.parallel import make_mesh
+    from compute_engine_tpu_torch.runtime.distributed_serving import (
+        MultiHostServer, ShardedInterpreter)
+    from compute_engine_tpu_torch.runtime.multiprocess import launch_workers
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((2, 1), devices=["cuda:0", "cuda:0"])
+    spec = tiny_quicknet(num_classes=4)
+    layers = convert_model(spec, init_model(spec, seed=0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedInterpreter(spec, layers, tp=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiHostServer(spec, layers)
+    artifact = str(tmp_path / "t.npz")
+    save_artifact(artifact, layers, spec.name)
+    procs, outs = launch_workers(1, artifact=artifact,
+                                 model="tiny:32,64:1,1:4:32",
+                                 out_dir=str(tmp_path))
+    stdout, _ = procs[0].communicate(timeout=120)
+    assert procs[0].returncode != 0
+    assert b"no CUDA device" in stdout
+    assert not os.path.exists(outs[0])
