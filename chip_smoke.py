@@ -108,14 +108,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      committed table says; ``benchmark_model(kernel=k)``'s images/s and the
      profiler's device-busy time; ``benchmark_model(artifact_path=)`` on
      phase 5's artifact reports its memory;
-   - train (``--train-only`` alone): QuickNet (224x224, 16 classes on the
-     1000-wide head) trained on the card by the protocol of
-     ``scripts/make_accuracy_fixtures.py`` (250 steps of batch 32, precise
-     BN over 16 batches of 64, calibration on one batch of 32), then the
-     float oracle against the packed float32, bfloat16 and int8 paths over
-     512 images: oracle top-1 >= 0.95, agreement >= 0.99 on every path,
-     dprob p99 <= 0.05 / 0.3 / 0.5. The record is one ``accuracy_224`` JSON
-     line (tests/fixtures/torch_accuracy_224.json holds a copy);
+   - train (``--train-only [--models a,b]`` alone): QuickNet,
+     Bi-RealNet-18, BinaryAlexNet and BinaryDenseNet-28 at 224x224 (16, 8,
+     8 and 8 classes on the 1000-wide head) trained on the card by
+     ``compute_engine_tpu_torch.scripts.accuracy_fixtures`` (the protocol of
+     the JAX repo's ``scripts/make_accuracy_fixtures.py``: 250, 250, 650 and
+     250 steps of batch 32, DenseNet's gradients clipped to global norm 1.0,
+     precise BN over 16 batches of 64, calibration on one batch of 32;
+     first, two trainings of 3 steps from one seed must end in the same
+     weights bit for bit), then
+     the float oracle against the packed float32, bfloat16, int8 and
+     packed-domain paths over 512 images, each path against the oracle at
+     its own operand precision (float32, else bfloat16 operands in the
+     oracle's float convs and dense layers, as on the TPU where the gates
+     were set), gated by the JAX package's per-model bounds
+     (``accuracy_fixtures.GATES``); the agreement with the float32 oracle
+     is printed beside. Each record is one
+     ``accuracy_224`` JSON line (tests/fixtures/torch_accuracy_224.json holds
+     the records);
    - the float32 QuickNet forward (TF32 off in the call) timed beside the
      bfloat16 one.
    Phases 3 and 5 gate the launch counts of the "auto" forward at what the
@@ -151,6 +161,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      to the default build at the main-path shapes; each of the four checks
      trips on a deliberately broken call by raising, and the default build
      still gives its results afterwards.
+
+8. The repo's tools (``--tools-only`` builds and runs this phase alone):
+   - ``examples.e2e_smoke``: ``quantize`` -> ``bconv2d`` with "reference",
+     "bgemm" and "mxu" -> the bitpacked chain -> ``bmaxpool2d`` ->
+     ``dequantize``; every lowering ``torch.equal`` to "reference";
+   - ``scripts.baseline_matrix`` at QuickNetSmall b1, QuickNet b128,
+     QuickNetLarge b128, Bi-RealNet-18 b128 (latency, images/s, device busy
+     per forward) and BinaryDenseNet-45 served for 10 s from 256 closed-loop
+     clients (every result equal to the direct forward); every row finite
+     and positive;
+   - ``scripts.section_profile`` at b128, in a process of its own: every
+     section's device time positive and its share of its bound at most
+     105%;
+   - ``scripts.tp_scaling_report``: QuickNet at dp 1, 2, 4 and
+     ``tp_bconv2d``'s three modes at 2 and 4 slots, each equal to one slot.
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit as nvidia-smi reports them, and ``{"ok": true, "device": ...}``.
@@ -450,7 +475,8 @@ def time_gemm(rng, m, kw, n, kind, device, max_block_kw=1024,
     """Times of the binary GEMM at one shape: the kernel by CUDA-graph
     replay and by eager calls (``ms_enqueued_from_python``, which the host's
     enqueue rate sets for the short shapes) and, with ``yardsticks``,
-    ``torch._int_mm`` of unpacked +-1 int8 operands by graph replay and the
+    ``torch._int_mm`` of unpacked +-1 int8 operands by graph replay (N
+    padded to a multiple of 8, which it needs; the record says so) and the
     plain version by eager calls (it copies a scalar from the host, which a
     capture refuses; it takes 0.7 ms and more in a dozen launches, so the
     host does not set its time); and its bound."""
@@ -473,12 +499,15 @@ def time_gemm(rng, m, kw, n, kind, device, max_block_kw=1024,
     times["plain_ms"] = time_ms(lambda: bgemm_plain(lhs, rhs, **kwargs),
                                 reps=3, warm=1, graph=False)
     times["library_ms"] = None
-    if m > 16 and n % 8 == 0:  # the shapes torch._int_mm takes
+    if m > 16:  # torch._int_mm takes M > 16 and N % 8 == 0: N is padded
+        n8 = -(-n // 8) * 8
         a8 = torch.randint(0, 2, (m, 32 * kw), device=device,
                            dtype=torch.int8) * 2 - 1
-        b8 = (torch.randint(0, 2, (n, 32 * kw), device=device,
+        b8 = (torch.randint(0, 2, (n8, 32 * kw), device=device,
                             dtype=torch.int8) * 2 - 1).t()
         times["library_ms"] = time_ms(lambda: torch._int_mm(a8, b8), reps=20)
+        if n8 != n:
+            times["library_n_padded_to"] = n8
     return times
 
 
@@ -1128,125 +1157,97 @@ def kernel_phase(dev, card, spec, layers, x, x_dev, plain_probs, alex,
     return results
 
 
-# The accuracy protocol of scripts/make_accuracy_fixtures.py for QuickNet.
-TRAIN_STEPS, TRAIN_BATCH, N_CLASSES, RECAL_BATCHES = 250, 32, 16, 16
-N_EVAL, EVAL_BATCH, EVAL_SPREAD = 512, 64, 0.35
-ACCURACY_GATES = {"packed_f32": 0.05, "packed_bf16": 0.3, "packed_int8": 0.5}
+# Phase 6(c): the models the default run trains by the accuracy protocol
+# (``--train-only --models a,b`` trains the ones named).
+TRAIN_MODELS = ("quicknet", "birealnet18", "binary_alexnet",
+                "binary_densenet28")
 
 
-def training_phase(dev, card):
-    """Phase 6(c): QuickNet at full width and depth trained briefly on the
-    card with the fixture protocol, then the float oracle against the packed
-    float32, bfloat16 and true-int8 paths over 512 images, gated as the
-    ``quicknet`` record of tests/test_accuracy_fixtures.py."""
+DETERMINISM_STEPS = 3
+
+
+def same_training(name, dev):
+    """Whether two short trainings of the zoo model ``name`` by the fixture
+    protocol, from one seed, end in the same weights bit for bit (the JAX
+    package's training is a function of its seed)."""
     import numpy as np
-    import torch
 
-    from compute_engine_tpu_torch.models import (calibrate_model,
-                                                 convert_model, float_apply,
-                                                 get_model, init_model,
-                                                 packed_apply, train_briefly)
-    from compute_engine_tpu_torch.models.train import (clustered_batch,
-                                                       make_prototypes,
-                                                       recalibrate_bn_stats)
+    from compute_engine_tpu_torch.models import (get_model, init_model,
+                                                 train_briefly)
+    from compute_engine_tpu_torch.models.train import make_prototypes
+    from compute_engine_tpu_torch.scripts import accuracy_fixtures as af
 
-    spec = get_model("quicknet")
-    seed = 0
-    protos = make_prototypes(1000 + seed, spec.input_size, N_CLASSES)
-    t0 = time.perf_counter()
-    trained, info = train_briefly(
-        spec, init_model(spec, seed=seed), steps=TRAIN_STEPS,
-        batch=TRAIN_BATCH, seed=seed, num_classes=N_CLASSES, protos=protos,
-        device=dev)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
-    check(np.isfinite(info["loss_last"])
-          and info["loss_last"] < info["loss_first"],
-          f"training did not lower the loss: {info}")
-    recal_rng = np.random.default_rng(4000 + seed)
-    trained = recalibrate_bn_stats(
-        spec, trained,
-        [clustered_batch(protos, recal_rng, EVAL_BATCH,
-                         spread=EVAL_SPREAD)[0]
-         for _ in range(RECAL_BATCHES)], device=dev)
-    with torch.no_grad():
-        xs, ys = clustered_batch(protos, np.random.default_rng(17), 128)
-        acc = float((float_apply(spec, trained, xs, device=dev).argmax(-1)
-                     .cpu().numpy() == ys).mean())
-    print(f"[train] QuickNet 224x224, {N_CLASSES} classes: {TRAIN_STEPS} "
-          f"Adam+STE steps of batch {TRAIN_BATCH} on the card, "
-          f"{step_s:.4f} s per step (numpy data included), loss "
-          f"{info['loss_first']:.4f} -> {info['loss_last']:.4f}; oracle "
-          f"accuracy after precise BN {acc:.4f} [{card}]", flush=True)
-    check(acc >= 0.95, f"oracle accuracy {acc} < 0.95 after training")
+    spec = get_model(name)
+    protos = make_prototypes(1000, spec.input_size, af.N_CLASSES[name])
 
-    layers = convert_model(spec, trained)
-    in_r, out_r = calibrate_model(
-        spec, trained,
-        [clustered_batch(protos, np.random.default_rng(3000 + seed),
-                         TRAIN_BATCH)[0]], with_outputs=True, device=dev)
-    layers8 = convert_model(spec, trained, int8_ranges=in_r,
-                            int8_out_ranges=out_r)
-    rng = np.random.default_rng(2000 + seed)
-    paths = {
-        "packed_f32": lambda x: packed_apply(spec, layers, x,
-                                             compute_dtype=torch.float32),
-        "packed_bf16": lambda x: packed_apply(spec, layers, x),
-        "packed_int8": lambda x: packed_apply(spec, layers8, x),
-    }
-    agree = {k: 0 for k in paths}
-    dprob = {k: [] for k in paths}
-    oracle_acc, first, n = 0, None, 0
-    for _ in range(N_EVAL // EVAL_BATCH):
-        x, y = clustered_batch(protos, rng, EVAL_BATCH, spread=EVAL_SPREAD)
-        xd = torch.from_numpy(x).to(dev)
-        with torch.no_grad():
-            want = float_apply(spec, trained, xd, device=dev).cpu().numpy()
-        if first is None:
-            first = want[:4, :16]
-        top = want.argmax(-1)
-        oracle_acc += int((top == y).sum())
-        for k, fn in paths.items():
-            probs = fn(xd).float().cpu().numpy()
-            agree[k] += int((probs.argmax(-1) == top).sum())
-            dprob[k].extend(np.abs(probs - want).max(axis=-1).tolist())
-        n += EVAL_BATCH
-    record = {
-        "images": n,
-        "paths": {k: {"top1_agreement": agree[k] / n,
-                      "dprob_p50": float(np.percentile(dprob[k], 50)),
-                      "dprob_p99": float(np.percentile(dprob[k], 99)),
-                      "dprob_max": float(np.max(dprob[k]))} for k in paths},
-        "oracle": {"top1_accuracy": oracle_acc / n,
-                   "first_logits_4x16": np.asarray(first, np.float64)
-                   .round(4).tolist()},
-        "train_loss": info,
-        "seconds_per_train_step": step_s,
-    }
-    meta = {"card": card, "torch": torch.__version__,
-            "cuda": torch.version.cuda, "n_eval": N_EVAL,
-            "n_classes": {"quicknet": N_CLASSES},
-            "recipe": f"train_briefly(steps={TRAIN_STEPS}, batch="
-                      f"{TRAIN_BATCH}, seed=0, device='cuda') on "
-                      "make_prototypes(1000 + seed) clustered data; "
-                      f"recalibrate_bn_stats over {RECAL_BATCHES} batches of "
-                      f"{EVAL_BATCH}; calibrate_model on one batch of "
-                      f"{TRAIN_BATCH}; eval {N_EVAL} images at spread "
-                      f"{EVAL_SPREAD} in batches of {EVAL_BATCH} "
-                      "(chip_smoke.py, phase 6)"}
-    print(json.dumps({"accuracy_224": {"_meta": meta, "quicknet": record}}),
-          flush=True)
-    check(record["oracle"]["top1_accuracy"] >= 0.95,
-          f"oracle top-1 {record['oracle']['top1_accuracy']}")
-    for k, bound in ACCURACY_GATES.items():
-        p = record["paths"][k]
-        print(f"[accuracy] QuickNet {k}: top-1 agreement with the float "
-              f"oracle {p['top1_agreement']:.4f} (gate 0.99), dprob p99 "
-              f"{p['dprob_p99']:.4g} (gate {bound}), max {p['dprob_max']:.4g} "
-              f"[{card}]", flush=True)
-        check(p["top1_agreement"] >= 0.99 and p["dprob_p99"] <= bound,
-              f"{k}: {p}")
-    return record
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [np.asarray(tree)]
+
+    runs = [leaves(train_briefly(
+        spec, init_model(spec, seed=0), steps=DETERMINISM_STEPS,
+        batch=af.TRAIN_BATCH, seed=0, num_classes=af.N_CLASSES[name],
+        protos=protos, clip_norm=af.CLIP_NORM.get(name), device=dev)[0])
+        for _ in range(2)]
+    return all(np.array_equal(a, b) for a, b in zip(*runs))
+
+
+def training_phase(dev, card, models=TRAIN_MODELS):
+    """Phase 6(c): each of ``models`` at full width and depth, trained
+    briefly on the card, then its float oracle against the packed float32,
+    bfloat16, true-int8 and packed-domain paths over 512 images, each at its
+    own operand precision (``scripts.accuracy_fixtures.record``), gated by
+    the JAX package's per-model bounds. Returns the records and the (block, bgemm, split-K) launches of
+    each model's run, counted from 0 just before it."""
+    import numpy as np
+
+    from compute_engine_tpu_torch.scripts import accuracy_fixtures as af
+
+    records, paths, failed = {}, {}, []
+    for name in models:
+        check(same_training(name, dev), f"{name}: two trainings from one "
+              "seed gave different weights")
+        print(f"[train] {name}: two trainings of {DETERMINISM_STEPS} steps "
+              "from one seed end in the same weights, bit for bit",
+              flush=True)
+        t0 = time.perf_counter()
+        reset_launches()
+        rec = af.run_model(name, device=dev)
+        counts = launch_counts()
+        paths[f"accuracy {name}"] = counts
+        records[name] = rec
+        info = rec["train_loss"]
+        print(f"[train] {name} 224x224, {af.N_CLASSES[name]} classes: "
+              f"{af.TRAIN_STEPS[name]} Adam+STE steps of batch "
+              f"{af.TRAIN_BATCH} on the card, "
+              f"{rec['seconds_per_train_step']:.4f} s per step (numpy data "
+              f"included), loss {info['loss_first']:.4f} -> "
+              f"{info['loss_last']:.4f}; oracle top-1 "
+              f"{rec['oracle']['top1_accuracy']:.4f}; (block, bgemm, "
+              f"split-K) launches {counts}; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        print(json.dumps({"accuracy_224": {"_meta": af.meta(card),
+                                           name: rec}}), flush=True)
+        gates = af.GATES[name]
+        for k in af.PATHS:
+            p, ex = rec["paths"][k], rec["paths"][k]["exact_oracle"]
+            print(f"[accuracy] {name} {k}: top-1 agreement with the float "
+                  f"oracle at {p['oracle_operands']} operands "
+                  f"{p['top1_agreement']:.4f} (gate "
+                  f"{gates['min_agreement'][k]}), dprob p99 "
+                  f"{p['dprob_p99']:.4g} (gate {gates['dprob_p99'][k]}), max "
+                  f"{p['dprob_max']:.4g}; against the float32 oracle "
+                  f"{ex['top1_agreement']:.4f}, p99 {ex['dprob_p99']:.4g} "
+                  f"[{card}]", flush=True)
+        check(np.isfinite(info["loss_last"])
+              and info["loss_last"] < info["loss_first"],
+              f"{name}: training did not lower the loss: {info}")
+        check(counts[0] + counts[1] > 0, f"{name}: no kernel launched")
+        failed += af.check_record(name, rec)
+    # Every model is recorded before the gates fail the phase.
+    check(not failed, "accuracy gates missed: " + "; ".join(failed))
+    return records, paths
 
 
 def float32_phase(dev, card, bench_bf16):
@@ -1292,13 +1293,11 @@ def multi_block_shards():
 
 
 def mesh_devices(n):
-    """``n`` slots: distinct cards where the visible ones cover them, else
-    ``cuda:0`` ``n`` times; and a label saying which."""
-    import torch
+    """``n`` slots and a label saying which: distinct cards where the visible
+    ones cover them, else ``cuda:0`` ``n`` times (``device_slots``)."""
+    from compute_engine_tpu_torch.parallel.mesh import device_slots
 
-    if torch.cuda.device_count() >= n:
-        return [torch.device("cuda", i) for i in range(n)], f"{n} cards"
-    return [torch.device("cuda", 0)] * n, f"cuda:0 x {n}"
+    return device_slots(n)
 
 
 def expected_sharded_launches(model, batch, mesh_shape, domain="float",
@@ -1732,6 +1731,145 @@ def multi_device_phase(dev, card, tmp):
     return paths
 
 
+# Phase 8: the baseline configurations the tools phase times (BASELINE.md's
+# five: four here and BinaryDenseNet-45 served, for TOOLS_SERVING_S seconds).
+TOOLS_CONFIGS = [("quicknet_small", 1), ("quicknet", 128),
+                 ("quicknet_large", 128), ("birealnet18", 128)]
+TOOLS_SERVING_S = 10.0
+SECTION_PCT_LIMIT = 105.0  # above it a section's floors are wrong
+
+
+# Phase 8(c) runs in a process of its own: QuickNet's sections at b128, and
+# the (block, bgemm, split-K) launches of that run, written to argv[1].
+SECTION_CHILD = """
+import json, sys
+from compute_engine_tpu_torch.kernels.bgemm import bgemm
+from compute_engine_tpu_torch.kernels.residual import binary_residual_block
+from compute_engine_tpu_torch.scripts import section_profile
+report = section_profile.profile(128)
+with open(sys.argv[1], "w") as f:
+    json.dump({"report": report, "launches": [
+        binary_residual_block.launches, bgemm.launches,
+        bgemm.splitk_launches]}, f)
+"""
+
+
+def tools_phase(dev, card):
+    """Phase 8: the repo's tools on the card (``--tools-only`` alone): the
+    user-flow example, the baseline matrix at its five configurations, the
+    QuickNet section profile at batch 128 and the scaling report over the
+    slots there. Each prints its JSON and is gated where it can be. Returns
+    the (block, bgemm, split-K) launches of each tool's run."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.examples import e2e_smoke
+    from compute_engine_tpu_torch.scripts import baseline_matrix as bm
+    from compute_engine_tpu_torch.scripts import section_profile as sp
+    from compute_engine_tpu_torch.scripts import tp_scaling_report as tsr
+
+    t_phase = time.perf_counter()
+    paths = {}
+    # (a) The example: every lowering equal to the reference, bit for bit.
+    reset_launches()
+    out = e2e_smoke.run(dev)
+    torch.cuda.synchronize()
+    paths["e2e_smoke"] = launch_counts()
+    bad = e2e_smoke.unequal(out)
+    print(json.dumps({"e2e_smoke": {
+        "kernels": list(e2e_smoke.KERNELS), "unequal": bad,
+        "launches": paths["e2e_smoke"],
+        "dequantized_values": sorted(out["dequantized"].unique().tolist())}}),
+        flush=True)
+    check(not bad, f"e2e_smoke: outputs differ from the reference: {bad}")
+    check(paths["e2e_smoke"][1] > 0, "e2e_smoke: the bgemm lowering "
+          "launched no GEMM")
+    print(f"[tools] e2e_smoke: bconv2d float and bitpacked outputs of "
+          f"{list(e2e_smoke.KERNELS[1:])} equal to 'reference' "
+          f"({TOLERANCE}); (block, bgemm, split-K) launches "
+          f"{paths['e2e_smoke']}", flush=True)
+
+    # (b) The baseline matrix.
+    rows = {}
+    for model, batch in TOOLS_CONFIGS:
+        reset_launches()
+        rows[f"{model}@{batch}"] = bm.bench_config(model, batch, device=dev)
+        paths[f"baseline_matrix {model}@{batch}"] = launch_counts()
+    reset_launches()
+    served = bm.bench_serving(duration_s=TOOLS_SERVING_S, device=dev)
+    paths["baseline_matrix serving"] = launch_counts()
+    rows[f"{served['model']}@serving"] = served
+    print(json.dumps({"baseline_matrix": rows, "card": card}), flush=True)
+    for name, rec in rows.items():
+        if "requests_per_sec" in rec:
+            print(f"[tools] baseline {name}: {rec['requests_per_sec']:.1f} "
+                  f"requests/s, p50 {rec['request_p50_ms']:.2f} ms, p99 "
+                  f"{rec['request_p99_ms']:.2f} ms, fill "
+                  f"{rec['mean_batch_fill']:.3f}, {rec['batches']} batches, "
+                  f"every result equal to the direct forward: "
+                  f"{rec['results_equal_direct']} [{card}]", flush=True)
+        else:
+            print(f"[tools] baseline {name}: p50 {rec['latency_ms_p50']:.3f} "
+                  f"ms, {rec['images_per_sec']:.1f} images/s, device busy "
+                  f"{ms_text(rec['device_busy_ms'])} per forward, first call "
+                  f"{rec['first_call_s']:.2f} s [{card}]", flush=True)
+    bad = bm.bad_rows(rows)
+    check(not bad, f"baseline matrix rows not finite and positive, or "
+          f"served results unequal: {bad}")
+
+    # (c) The section profile, in a process of its own, as a user runs it.
+    # In this process, after phases 1-7, the profiler's device time of the
+    # stem prefixes read 0.26-0.53 ms where a fresh process reads 0.61 ms
+    # on every run (cause not found), and the prefix differencing then gave
+    # a row a negative time.
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "section_profile.json")
+        run = subprocess.run(
+            [sys.executable, "-c", SECTION_CHILD, out], timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(run.returncode == 0, f"section profile: its process exited "
+              f"with {run.returncode}")
+        with open(out) as f:
+            child = json.load(f)
+    report = child["report"]
+    paths["section_profile"] = tuple(child["launches"])
+    print(json.dumps({"section_profile": report, "card": card}), flush=True)
+    for r in report["sections"]:
+        pct = r["pct_of_bound"]
+        print(f"[tools] section {r['name']}: {r['ms']:.4f} ms device busy, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_kind']}), "
+              f"{'-' if pct is None else f'{pct:.1f}'}% of bound [{card}]",
+              flush=True)
+    bad = sp.bad_rows(report, SECTION_PCT_LIMIT)
+    check(not bad, f"section profile: rows with no positive time or above "
+          f"{SECTION_PCT_LIMIT}% of their bound: {bad}")
+
+    # (d) The scaling report.
+    reset_launches()
+    dp = tsr.dp_scaling(device=dev)
+    tp = tsr.tp_modes(device=dev)
+    paths["tp_scaling_report"] = launch_counts()
+    print(json.dumps({"tp_scaling": {"dp_scaling": dp, "tp_modes": tp},
+                      "card": card}), flush=True)
+    for r in dp:
+        print(f"[tools] dp {r['dp']} on {r['slots']}: "
+              f"{r['images_per_sec']:.1f} images/s, device busy "
+              f"{ms_text(r['device_busy_ms'])}, scaling efficiency "
+              f"{r['scaling_efficiency']:.3f} [{card}]", flush=True)
+    for r in tp:
+        print(f"[tools] tp_bconv2d {r['mode']} tp {r['tp']} on {r['slots']}: "
+              f"{r['ms']:.4f} ms (one slot {r['single_slot_ms']:.4f} ms), "
+              f"equal to one slot: {r['equal_single_slot']} [{card}]",
+              flush=True)
+    check(all(r["equal_single_slot"] for r in tp), "tp_bconv2d: a mode "
+          "differs from the single-slot op")
+    check(all(np.isfinite(r["images_per_sec"]) and r["images_per_sec"] > 0
+              for r in dp), f"dp scaling rows: {dp}")
+    print(f"[tools] phase 8: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return paths
+
+
 def main():
     import torch
 
@@ -1813,7 +1951,14 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         selection_phase(dev, card)
         return 0
     if "--train-only" in args:
-        training_phase(dev, card)
+        models = TRAIN_MODELS
+        if "--models" in args:
+            models = tuple(args[args.index("--models") + 1].split(","))
+        print(json.dumps({"launches_by_path": training_phase(
+            dev, card, models)[1]}))
+        return 0
+    if "--tools-only" in args:
+        print(json.dumps({"launches_by_path": tools_phase(dev, card)}))
         return 0
     if "--multi-only" in args:
         print(json.dumps({"launches_by_path": multi_device_phase(dev, card,
@@ -2176,8 +2321,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     print(f"[time] bgemm split-K M={m} KW={kw} N={n} float, block_kw "
           f"{SPLITK_BLOCK_KW}: kernel {splitk['ms']:.4f} ms (before "
           f"{SPLITK_MS_BEFORE:.4f} ms [{BEFORE_CARD}]), plain "
-          f"{splitk['plain_ms']:.4f} ms, torch._int_mm not run (it takes "
-          f"N % 8 == 0 only), bound {splitk['bound_ms']:.4f} ms "
+          f"{splitk['plain_ms']:.4f} ms, torch._int_mm with N padded to "
+          f"{splitk['library_n_padded_to']} {splitk['library_ms']:.4f} ms, "
+          f"bound {splitk['bound_ms']:.4f} ms "
           f"({splitk['bound_by']}) [{card}]", flush=True)
 
     # The int8 pipeline's GEMMs: four launches per shape in a QuickNet
@@ -2223,11 +2369,14 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     selection_phase(dev, card)
     kernel_phase(dev, card, spec, layers, x, x_dev, plain, alex, alex_layers,
                  xa, plain_a, artifact)
-    training_phase(dev, card)
+    _, trained = training_phase(dev, card)
     float32_phase(dev, card, bench)
 
     # 7. The multi-device path.
     sharded = multi_device_phase(dev, card, tmp)
+
+    # 8. The repo's tools.
+    tools = tools_phase(dev, card)
 
     kernels = [{
         "name": "residual_block",
@@ -2293,14 +2442,16 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         "library_ms": splitk["library_ms"],
         "launches_by_path": {k: v[2] for k, v in sharded.items()},
         "per": f"one forced split-K call, M={m} KW={kw} N={n} float, "
-               f"block_kw {SPLITK_BLOCK_KW} (no zoo shape reaches split-K; "
-               "torch._int_mm does not take N % 8 != 0)",
+               f"block_kw {SPLITK_BLOCK_KW} (no zoo shape reaches split-K); "
+               "library_ms: torch._int_mm with N padded to "
+               f"{splitk['library_n_padded_to']} (it takes N % 8 == 0 only)",
         "shapes": [splitk],
     }]
     print(json.dumps({"mma_rates": mma_rates}))
     # (block, bgemm, split-K) launches of each path of phase 5, counted from
     # 0 just before the path to just after it.
-    print(json.dumps({"launches_by_path": {**served, **sharded}}))
+    print(json.dumps({"launches_by_path": {**served, **trained, **sharded,
+                                           **tools}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -193,10 +193,18 @@ class InitBuilder(_Base):
 
 
 class FloatBuilder(_Base):
-    """QAT-style float forward from a parameter tree (the accuracy oracle)."""
+    """QAT-style float forward from a parameter tree (the accuracy oracle).
 
-    def __init__(self, params):
+    ``operand_dtype`` (``None``: float32) rounds the operands of the float
+    convs and dense layers to that dtype before a float32 product; the
+    binary layers' operands are +-1 and exact in any dtype."""
+
+    def __init__(self, params, operand_dtype=None):
         self.params = params
+        self.operand_dtype = operand_dtype
+
+    def _operand(self, x):
+        return x if self.operand_dtype is None else x.to(self.operand_dtype)
 
     def _kernel(self, name, x):
         return torch.as_tensor(self.params[name]["kernel"]).to(x.device)
@@ -208,13 +216,14 @@ class FloatBuilder(_Base):
 
     def conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
                 activation=None, name, groups=1, dilation=1):
-        y = L.conv2d(x, self._kernel(name, x), _pair(stride), padding,
-                     groups=groups, dilation=_pair(dilation))
+        y = L.conv2d(self._operand(x), self._kernel(name, x), _pair(stride),
+                     padding, groups=groups, dilation=_pair(dilation))
         return L.apply_activation(self._apply_bn(y, name), activation)
 
     def depthwise_conv_bn(self, x, ksize, *, stride=1, activation=None,
                           name):
-        y = L.depthwise_conv2d(x, self._kernel(name, x), _pair(stride))
+        y = L.depthwise_conv2d(self._operand(x), self._kernel(name, x),
+                               _pair(stride))
         return L.apply_activation(self._apply_bn(y, name), activation)
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
@@ -230,7 +239,7 @@ class FloatBuilder(_Base):
 
     def dense(self, x, units, *, use_bias=True, activation=None, name):
         p = self.params[name]
-        y = L.dense(x, self._kernel(name, x),
+        y = L.dense(self._operand(x), self._kernel(name, x),
                     torch.as_tensor(p["bias"]).to(x.device)
                     if use_bias else None)
         return L.apply_activation(y, activation)
@@ -952,14 +961,18 @@ def init_model(spec, seed=0, randomize_bn=False):
     return b.params
 
 
-def float_apply(spec, params, x, device="cuda"):
+def float_apply(spec, params, x, device="cuda", operand_dtype=None):
     """QAT float forward (the oracle) on ``device``, the card by default.
 
-    Gradients flow (``ste_sign`` passes them straight through), so a caller
-    that only evaluates wraps the call in ``torch.no_grad()``."""
+    Float32 throughout by default. ``operand_dtype=torch.bfloat16`` rounds
+    the operands of the float convs and dense layers to bfloat16 and sums
+    in float32, as a float32 conv or matmul at XLA's default precision does
+    on a TPU: the oracle of the JAX package's TPU records. Gradients flow
+    (``ste_sign`` passes them straight through), so a caller that only
+    evaluates wraps the call in ``torch.no_grad()``."""
     device = resolve_device(device)
     with exact_float32():
-        return spec.forward(FloatBuilder(params),
+        return spec.forward(FloatBuilder(params, operand_dtype),
                             torch.as_tensor(x).to(device))
 
 

@@ -11,9 +11,12 @@ path against the float oracle with trained weights.
 
 The data come from numpy generators exactly as in the JAX package, so one
 seed gives the same batches in both. In place of optax: ``torch.optim.Adam``
-with optax's defaults, ``clip_grad_norm_`` for the global-norm clip, and
+with optax's defaults, ``clip_by_global_norm`` (optax's formula) for the
+global-norm clip, and
 ``F.cross_entropy`` on the logits. Training and the statistics' collection
-run with TF32 off (``device.exact_float32``), in float32 throughout.
+run with TF32 off (``device.exact_float32``), in float32 throughout, and
+with deterministic algorithms only (``device.deterministic``): one seed
+gives one set of weights on the card, as it does in the JAX package.
 
 This is not a training framework; it exists to make honest conversion-
 accuracy evidence.
@@ -25,12 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import exact_float32, resolve_device
+from ..device import deterministic, exact_float32, resolve_device
 from . import layers as L
 from .builder import FloatBuilder, _on
 
 __all__ = ["TrainBuilder", "make_prototypes", "clustered_batch",
-           "synthetic_clustered", "train_briefly", "recalibrate_bn_stats"]
+           "synthetic_clustered", "clip_by_global_norm", "train_briefly",
+           "recalibrate_bn_stats"]
 
 
 class TrainBuilder(FloatBuilder):
@@ -109,6 +113,21 @@ def _leaves(params):
         yield params
 
 
+def clip_by_global_norm(grads, max_norm):
+    """Scale the gradient tensors ``grads`` in place as
+    ``optax.clip_by_global_norm`` does: where their global norm (over every
+    leaf; a leaf with no gradient adds nothing, as optax's zero gradient of
+    a moving statistic adds nothing) reaches ``max_norm``, each becomes
+    ``(g / norm) * max_norm``. Unlike ``torch.nn.utils.clip_grad_norm_``
+    there is no epsilon beside the norm, and a norm under ``max_norm``
+    leaves them as they are."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    if norm >= max_norm:
+        for g in grads:
+            g.div_(norm).mul_(max_norm)
+    return norm
+
+
 def train_briefly(spec, params, *, steps=40, batch=32, lr=2e-3, seed=0,
                   num_classes=None, bn_momentum=0.7, data=None, protos=None,
                   clip_norm=None, bn_eps=L.BN_EPSILON, device="cuda"):
@@ -133,7 +152,7 @@ def train_briefly(spec, params, *, steps=40, batch=32, lr=2e-3, seed=0,
     # optax's update of a zero gradient does.
     opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     losses = []
-    with exact_float32():
+    with exact_float32(), deterministic():
         for _ in range(steps):
             x, y = next(stream)
             b = TrainBuilder(p, bn_eps=bn_eps)
@@ -144,8 +163,8 @@ def train_briefly(spec, params, *, steps=40, batch=32, lr=2e-3, seed=0,
             opt.zero_grad(set_to_none=True)
             loss.backward()
             if clip_norm:
-                torch.nn.utils.clip_grad_norm_(
-                    [t for t in leaves if t.grad is not None], clip_norm)
+                clip_by_global_norm(
+                    [t.grad for t in leaves if t.grad is not None], clip_norm)
             opt.step()
             with torch.no_grad():
                 for name, (mean, var) in b.batch_stats.items():
@@ -173,7 +192,7 @@ def recalibrate_bn_stats(spec, params, batches, device="cuda"):
     device = resolve_device(device)
     p = _tensors(dict(params), device)
     collected = {}
-    with torch.no_grad(), exact_float32():
+    with torch.no_grad(), exact_float32(), deterministic():
         for x in batches:
             b = TrainBuilder(p)
             spec.forward(b, torch.from_numpy(np.asarray(x, np.float32)).to(

@@ -22,13 +22,26 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "make_mesh", "visible_cards"]
+__all__ = ["Mesh", "make_mesh", "visible_cards", "device_slots"]
 
 
 def visible_cards() -> list[torch.device]:
     """Every visible card, ``cuda:0 .. cuda:n-1``; raises without one."""
     resolve_device("cuda")
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device_slots(n, device="cuda"):
+    """``n`` device slots for a mesh and a label saying which: distinct
+    cards where the visible ones cover them, else the first card (or the
+    CPU) ``n`` times."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        if torch.cuda.device_count() >= n:
+            return ([torch.device("cuda", i) for i in range(n)],
+                    f"{n} card{'s' if n > 1 else ''}")
+        return [torch.device("cuda", 0)] * n, f"cuda:0 x {n}"
+    return [device] * n, f"{device} x {n}"
 
 
 class Mesh:

@@ -27,7 +27,8 @@ from ..models import (KERNELS, calibrate_model, convert_model, get_model,
                       init_model, packed_apply, prepare_runtime_arrays)
 from .interpreter import artifact_model
 
-__all__ = ["benchmark_model", "memory_metrics", "activation_peak_bytes"]
+__all__ = ["benchmark_model", "prepare_forward", "device_busy_ms",
+           "memory_metrics", "activation_peak_bytes"]
 
 
 def memory_metrics(layers, x):
@@ -67,33 +68,17 @@ def activation_peak_bytes(forward):
     return best[0]
 
 
-def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
-                    seed=0, kernel="auto", artifact_path=None,
-                    compute_dtype=torch.bfloat16, input_size=None,
-                    device="cuda", domain="float", int8_pipeline=False):
-    """Latency, images/s and memory of ``packed_apply`` at ``batch`` on the
-    card.
-
-    Without ``artifact_path`` the weights are random from ``seed``
-    (``init_model(randomize_bn=True)``) for ``model`` (QuickNet when none is
-    named). With it, the artifact is loaded with ``load_artifact`` and its
-    model is ``model`` if given, else the graph program in its header or the
-    zoo model of its name, as ``Interpreter`` does. ``input_size`` overrides
-    the model's (H, W). ``kernel`` chooses the binary layers' lowering (see
-    ``models.PackedBuilder``). ``domain="packed"`` chains binary layers
-    through bitpacked activations.
-
-    ``int8_pipeline`` (no artifact) times the true-int8 execution mode: the
-    model is calibrated on two random batches of 8 (from ``seed + 1``) and
-    converted with input and output ranges.
-
-    Memory: ``weights_mb`` and ``input_mb`` (``memory_metrics``),
-    ``act_peak_mb`` (``activation_peak_bytes`` of one forward) and
-    ``peak_hbm_mb``, the allocator's peak over the whole run, in MiB.
-    """
+def prepare_forward(model=None, batch=128, seed=0, kernel="auto",
+                    artifact_path=None, compute_dtype=torch.bfloat16,
+                    input_size=None, device="cuda", domain="float",
+                    int8_pipeline=False):
+    """The forward that ``benchmark_model`` times, built on ``device``:
+    returns ``(spec, layers, x, forward)``, the runtime layers, the input
+    batch (normal draws from ``seed``) and a callable that runs
+    ``packed_apply`` on them. The arguments are ``benchmark_model``'s. On a
+    card the allocator's peak is reset once the weights are made, before
+    they are copied there."""
     device = resolve_device(device)
-    if device.type != "cuda":
-        raise ValueError("benchmark_model times the card; it has no CPU mode")
     if artifact_path is not None:
         if int8_pipeline:
             raise ValueError("int8_pipeline converts random weights; an "
@@ -117,7 +102,8 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
                 with_outputs=True, device=device)
             ranges = {"int8_ranges": in_r, "int8_out_ranges": out_r}
         layers_np = convert_model(spec, params, **ranges)
-    torch.cuda.reset_peak_memory_stats(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     layers = layers_from_numpy(prepare_runtime_arrays(layers_np), device)
     size = tuple(input_size or spec.input_size)
     rng = np.random.default_rng(seed)
@@ -128,6 +114,64 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
         return packed_apply(spec, layers, x, kernel=kernel,
                             compute_dtype=compute_dtype, device=device,
                             domain=domain)
+
+    return spec, layers, x, forward
+
+
+def device_busy_ms(forward, n=3):
+    """Device time per call of ``forward`` on the card: the sum of the
+    kernels' and copies' device time in a ``torch.profiler`` trace of ``n``
+    calls (after one untraced call), over ``n``. ``None`` when the profiler
+    saw no device time. Unlike a host clock around eager calls it does not
+    move with the rate at which the host enqueues launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            forward()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / n if busy > 0 else None
+
+
+def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
+                    seed=0, kernel="auto", artifact_path=None,
+                    compute_dtype=torch.bfloat16, input_size=None,
+                    device="cuda", domain="float", int8_pipeline=False,
+                    device_busy=False):
+    """Latency, images/s and memory of ``packed_apply`` at ``batch`` on the
+    card.
+
+    Without ``artifact_path`` the weights are random from ``seed``
+    (``init_model(randomize_bn=True)``) for ``model`` (QuickNet when none is
+    named). With it, the artifact is loaded with ``load_artifact`` and its
+    model is ``model`` if given, else the graph program in its header or the
+    zoo model of its name, as ``Interpreter`` does. ``input_size`` overrides
+    the model's (H, W). ``kernel`` chooses the binary layers' lowering (see
+    ``models.PackedBuilder``). ``domain="packed"`` chains binary layers
+    through bitpacked activations.
+
+    ``int8_pipeline`` (no artifact) times the true-int8 execution mode: the
+    model is calibrated on two random batches of 8 (from ``seed + 1``) and
+    converted with input and output ranges.
+
+    Memory: ``weights_mb`` and ``input_mb`` (``memory_metrics``),
+    ``act_peak_mb`` (``activation_peak_bytes`` of one forward) and
+    ``peak_hbm_mb``, the allocator's peak over the whole run, in MiB.
+    ``device_busy`` adds ``device_busy_ms``, the profiler's device time per
+    forward (``device_busy_ms``).
+    """
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError("benchmark_model times the card; it has no CPU mode")
+    spec, layers, x, forward = prepare_forward(
+        model, batch, seed, kernel, artifact_path, compute_dtype, input_size,
+        device, domain, int8_pipeline)
 
     t0 = time.perf_counter()
     forward()
@@ -148,6 +192,7 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
     times = np.asarray(times)
     p50 = float(np.median(times))
     act_peak = activation_peak_bytes(forward)
+    busy = {"device_busy_ms": device_busy_ms(forward)} if device_busy else {}
     return {
         "model": spec.name,
         "batch": batch,
@@ -165,6 +210,7 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
         "act_peak_mb": round(act_peak / 2 ** 20, 2),
         "peak_hbm_mb": round(torch.cuda.max_memory_allocated(device)
                              / 2 ** 20, 1),
+        **busy,
     }
 
 

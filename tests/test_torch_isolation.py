@@ -40,7 +40,9 @@ NEW_MODULES = ["converter.cli", "converter.graph_import",
                "utils.profiling", "kernels.debug", "parallel",
                "parallel.mesh", "parallel.sharding", "parallel.collective",
                "parallel.partition", "runtime.distributed_serving",
-               "runtime.multiprocess"]
+               "runtime.multiprocess", "scripts", "scripts.accuracy_fixtures",
+               "scripts.baseline_matrix", "scripts.section_profile",
+               "scripts.tp_scaling_report", "examples", "examples.e2e_smoke"]
 
 
 def test_port_imports_no_jax():
@@ -127,6 +129,28 @@ def test_entry_points_raise_without_card():
         benchmark_model(spec, batch=1, int8_pipeline=True)
     with pytest.raises(ValueError, match="no CPU mode"):
         benchmark_model(spec, batch=1, int8_pipeline=True, device="cpu")
+
+
+def test_tools_raise_without_card():
+    """The tools and the example run on the card by default and raise
+    without one: none measures the CPU in its place."""
+    _no_card()
+    from compute_engine_tpu_torch.examples import e2e_smoke
+    from compute_engine_tpu_torch.scripts import (accuracy_fixtures,
+                                                  baseline_matrix,
+                                                  section_profile,
+                                                  tp_scaling_report)
+
+    spec = tiny_quicknet(num_classes=4)
+    for call in (lambda: baseline_matrix.bench_config(spec, 1),
+                 lambda: baseline_matrix.bench_serving(spec),
+                 lambda: section_profile.profile(1),
+                 lambda: tp_scaling_report.dp_scaling(spec),
+                 lambda: tp_scaling_report.tp_modes(),
+                 lambda: e2e_smoke.run(),
+                 lambda: accuracy_fixtures.train_model("quicknet")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_cli_calibration_and_serving_raise_without_card(tmp_path):

@@ -177,6 +177,80 @@ def test_train_briefly_step_matches_jax(setup):
     assert close >= 0.97 * total, (close, total)
 
 
+@pytest.mark.parametrize("max_norm", [0.5, 50.0])
+def test_clip_by_global_norm_matches_optax(max_norm):
+    """The global-norm clip of ``train_briefly(clip_norm=)`` is optax's:
+    scaled by ``max_norm / norm`` at or above ``max_norm`` (no epsilon),
+    untouched below; zero leaves (a moving statistic's) change nothing."""
+    from compute_engine_tpu_torch.models.train import clip_by_global_norm
+
+    rng = np.random.default_rng(11)
+    tree = {"a": rng.normal(0, 1, (7, 5)).astype(np.float32),
+            "b": rng.normal(0, 3, (11,)).astype(np.float32),
+            "moving_mean": np.zeros(4, np.float32)}
+    want, _ = optax.clip_by_global_norm(max_norm).update(
+        jax.tree_util.tree_map(jnp.asarray, tree), optax.EmptyState())
+    grads = {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+    norm = clip_by_global_norm([grads["a"], grads["b"]], max_norm)
+    assert float(norm) == pytest.approx(float(optax.global_norm(tree)),
+                                        rel=1e-6)
+    assert (float(norm) >= max_norm) == (max_norm == 0.5)
+    for k, v in want.items():
+        np.testing.assert_allclose(grads[k].numpy(), np.asarray(v),
+                                   rtol=1e-6, atol=0, err_msg=k)
+
+
+def test_train_briefly_clipped_matches_jax(setup):
+    """Three steps with a clip norm that every step reaches: the same losses
+    as JAX's optax chain (clip, then Adam), to the gradients' tolerance."""
+    params, _, _ = setup
+    protos = make_prototypes(7, (32, 32), N_CLASSES)
+    kw = dict(steps=3, batch=16, seed=2, protos=protos, lr=1e-3,
+              clip_norm=1e-3)
+    _, jinfo = jtrain_briefly(JSPEC, params, **kw)
+    _, info = train_briefly(SPEC, params, device="cpu", **kw)
+    for k in ("loss_first", "loss_last"):
+        np.testing.assert_allclose(info[k], jinfo[k], **GRAD_TOL)
+
+
+def test_deterministic_scopes_and_restores():
+    """``device.deterministic`` turns deterministic algorithms on for the
+    block (training and precise BN run inside it) and restores the caller's
+    settings, also after an error."""
+    import os
+
+    from compute_engine_tpu_torch.device import deterministic
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark,
+              os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    with pytest.raises(KeyError):
+        with deterministic():
+            assert torch.are_deterministic_algorithms_enabled()
+            assert torch.backends.cudnn.deterministic
+            assert not torch.backends.cudnn.benchmark
+            assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+            raise KeyError
+    assert (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG")) == before
+
+
+def test_train_briefly_is_a_function_of_its_seed():
+    """Two trainings from one seed end in the same weights, bit for bit."""
+    protos = make_prototypes(7, (32, 32), N_CLASSES)
+    kw = dict(steps=3, batch=16, seed=2, protos=protos, clip_norm=1.0,
+              device="cpu")
+    params = init_model(SPEC, seed=0)
+    a, info_a = train_briefly(SPEC, params, **kw)
+    b, info_b = train_briefly(SPEC, params, **kw)
+    assert info_a == info_b
+    for (path, x), (_, y) in zip(_flat(a), _flat(b)):
+        np.testing.assert_array_equal(x, y, err_msg=path)
+
+
 # -- the in-suite accuracy gates (tests/test_accuracy_fixtures.py:38-135),
 #    trained by the port ------------------------------------------------------
 
@@ -292,24 +366,74 @@ def test_jax_trained_params_carried_across():
 # -- the card's 224x224 record ------------------------------------------------
 
 
-def test_committed_card_record():
-    """QuickNet trained at full width on the card and held against every
-    path there (chip_smoke.py, phase 6): the quicknet gates of
-    tests/test_accuracy_fixtures.py. A lost record fails, it never skips."""
+# The per-model gates of tests/test_accuracy_fixtures.py, copied: the least
+# top-1 agreement with the float oracle and the largest p99 of the per-image
+# max |dprob| of each path.
+_GATES = {
+    "min_agreement": {"packed_f32": 0.99, "packed_bf16": 0.99,
+                      "packed_int8": 0.99, "packed_domain": 0.99},
+    "dprob_p99": {"packed_f32": 0.05, "packed_bf16": 0.3,
+                  "packed_int8": 0.5, "packed_domain": 0.3},
+}
+CARD_GATES = {
+    "quicknet": _GATES,
+    "birealnet18": _GATES,
+    "binary_alexnet": {
+        "min_agreement": {"packed_f32": 0.99, "packed_bf16": 0.99,
+                          "packed_int8": 0.97, "packed_domain": 0.99},
+        "dprob_p99": {"packed_f32": 0.5, "packed_bf16": 0.5,
+                      "packed_int8": 0.85, "packed_domain": 0.5},
+    },
+    "binary_densenet28": {
+        "min_agreement": {"packed_f32": 0.99, "packed_bf16": 0.99,
+                          "packed_int8": 0.85, "packed_domain": 0.99},
+        "dprob_p99": {"packed_f32": 0.05, "packed_bf16": 0.3,
+                      "packed_int8": 1.0, "packed_domain": 0.3},
+    },
+}
+
+
+@pytest.mark.parametrize("model", sorted(CARD_GATES))
+def test_committed_card_record(model):
+    """Each flagship model trained at full width on the card and held
+    against every path there (``scripts.accuracy_fixtures``), under the JAX
+    package's per-model gates: the float32 path against the float32 oracle,
+    the bfloat16, int8 and packed-domain paths against the oracle with
+    bfloat16 operands in its float convs and dense layers, as on the TPU
+    where the gates were set. Every path, the packed domain included, is
+    mandatory, and so is its reading against the float32 oracle; a lost
+    record fails, it never skips."""
     with open(FIXTURE) as f:
         fx = json.load(f)
     meta = fx["_meta"]
-    assert meta["card"].startswith("NVIDIA") and "W" in meta["card"]
+    assert meta["card"].startswith("NVIDIA") and meta["card"].endswith("W")
     assert "recipe" in meta
-    assert "quicknet" in fx, "the card's QuickNet record is missing"
-    rec = fx["quicknet"]
+    assert model in fx, f"the card's {model} record is missing"
+    rec = fx[model]
     assert rec["images"] >= 512
     assert rec["oracle"]["top1_accuracy"] >= 0.95
-    dprob_p99_bound = {"packed_f32": 0.05, "packed_bf16": 0.3,
-                       "packed_int8": 0.5}
-    for path, bound in dprob_p99_bound.items():
-        assert rec["paths"][path]["top1_agreement"] >= 0.99, path
-        assert rec["paths"][path]["dprob_p99"] <= bound, path
+    gates = CARD_GATES[model]
+    assert set(rec["paths"]) == set(gates["min_agreement"])
+    for path, least in gates["min_agreement"].items():
+        assert rec["paths"][path]["top1_agreement"] >= least, path
+        assert rec["paths"][path]["dprob_p99"] <= gates["dprob_p99"][path], \
+            path
+        assert rec["paths"][path]["oracle_operands"] == (
+            "float32" if path == "packed_f32" else "bfloat16"), path
+        exact = rec["paths"][path]["exact_oracle"]
+        assert 0 < exact["top1_agreement"] <= 1 and exact["dprob_p99"] >= 0
+    assert rec["paths"]["packed_f32"]["exact_oracle"] == {
+        k: rec["paths"]["packed_f32"][k] for k in ("top1_agreement",
+                                                   "dprob_p99")}
     logits = np.asarray(rec["oracle"]["first_logits_4x16"])
     assert logits.shape == (4, 16) and np.isfinite(logits).all()
     assert rec["train_loss"]["loss_last"] < rec["train_loss"]["loss_first"]
+    assert rec["seconds_per_train_step"] > 0
+
+
+def test_accuracy_fixtures_gates_are_jax_gates():
+    """The gates the card's run applies (``accuracy_fixtures.GATES``) are
+    the JAX package's, as copied above."""
+    from compute_engine_tpu_torch.scripts import accuracy_fixtures
+
+    assert accuracy_fixtures.GATES == CARD_GATES
