@@ -55,6 +55,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same forward through the plain versions on the card; BinaryAlexNet's
    also against its float-domain forward. Then run every zoo model once at
    batch 4 in the float domain, against the plain versions.
+3(b). The compiled forward (``--compiled-only`` builds, runs this phase
+   alone and stops), from a generator of its own: ``Interpreter`` at
+   QuickNet b128 in bf16 and float32, at b1 and in the int8 pipeline, and
+   packed BinaryAlexNet b128 through ``runtime.compiled.CompiledForward``:
+   the call that captures and a replay, each ``torch.equal`` to the eager
+   ``packed_apply`` and at the launches per call ``expected_launches``
+   gives; one block's filter negated in place changes the next replay as it
+   changes the eager forward; ``predict`` pads its last chunk to a compiled
+   shape; a call inside ``kernels.debug_checks()`` raises. Then the eager
+   p50 of QuickNet b128, three ``benchmark_model`` readings of it (they
+   must lie within 1.05x of each other in images/s, each p50 at most 1.15x
+   the device busy of one replay), and QuickNet b1 and packed AlexNet by
+   the same timer beside their eager p50.
 4. Time ``benchmark_model`` (images/s) for both models (BinaryAlexNet in both
    domains, QuickNet also with ``int8_pipeline=True``), print a torch.profiler breakdown of each forward's device time
    by kernel, measure the rate of the int8 and the one-bit tensor-core MMA
@@ -1157,6 +1170,220 @@ def kernel_phase(dev, card, spec, layers, x, x_dev, plain_probs, alex,
     return results
 
 
+# Phase 3(b): the compiled forward. Gates of the benchmark's readings.
+COMPILED_BENCH_RUNS = 3  # benchmark_model calls on QuickNet b128, one process
+COMPILED_SPREAD_LIMIT = 1.05  # max / min of their images/s
+COMPILED_BUSY_LIMIT = 1.15  # their p50 over the device busy of one replay
+
+
+def eager_p50_ms(forward, iters=20, repeats=5):
+    """The eager forward's latency as ``benchmark_model`` read it before the
+    forward was compiled: CUDA events around ``repeats`` windows of
+    ``iters`` eager forwards, the median window over ``iters`` (paced by
+    the host where it enqueues slower than the card runs)."""
+    import numpy as np
+    import torch
+
+    forward()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            forward()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
+
+
+def compiled_phase(dev, card, spec, layers, alex, alex_layers, spec8,
+                   layers8_np):
+    """Phase 3(b) (``--compiled-only`` builds and runs it alone): the
+    forward compiled into one CUDA graph per input shape and dtype
+    (``runtime.compiled``) behind ``Interpreter`` and ``benchmark_model``.
+    Returns the (block, bgemm, split-K) launches of one call of each
+    compiled path."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.models import packed_apply
+    from compute_engine_tpu_torch.runtime import Interpreter
+    from compute_engine_tpu_torch.runtime.benchmark import (benchmark_model,
+                                                            device_busy_ms,
+                                                            time_forward)
+    from compute_engine_tpu_torch.runtime.compiled import CompiledForward
+
+    t_phase = time.perf_counter()
+    crng = np.random.default_rng(9)  # this phase's own inputs
+    paths = {}
+
+    def images(batch, size):
+        return torch.from_numpy(crng.normal(0, 1, (batch, *size, 3)).astype(
+            np.float32)).to(dev)
+
+    qn = Interpreter(spec, layers, device=dev)
+    qn32 = Interpreter(spec, layers, compute_dtype=torch.float32, device=dev)
+    qn8 = Interpreter(spec8, layers8_np, device=dev)
+    alex_packed = CompiledForward(
+        lambda x: packed_apply(alex, alex_layers, x, domain="packed",
+                                   device=dev), dev)
+    # (label, compiled call, the same forward eagerly, input, launches)
+    cases = [
+        ("quicknet b128 bf16", qn,
+         lambda x: packed_apply(spec, qn.layers, x, device=dev),
+         images(128, spec.input_size), expected_launches("quicknet", 128)),
+        ("quicknet b128 float32", qn32,
+         lambda x: packed_apply(spec, qn32.layers, x,
+                                compute_dtype=torch.float32, device=dev),
+         images(128, spec.input_size), expected_launches("quicknet", 128)),
+        ("binary_alexnet b128 packed domain", alex_packed,
+         lambda x: packed_apply(alex, alex_layers, x, domain="packed",
+                                   device=dev),
+         images(128, alex.input_size),
+         expected_launches("binary_alexnet", 128, "packed")),
+        ("quicknet int8 pipeline b128", qn8,
+         lambda x: packed_apply(spec8, qn8.layers, x, device=dev),
+         images(128, spec.input_size), (0, 16, 0)),
+        ("quicknet b1 bf16", qn,
+         lambda x: packed_apply(spec, qn.layers, x, device=dev),
+         images(1, spec.input_size), expected_launches("quicknet", 1)),
+    ]
+    busy = {}
+    for label, run, eager, x, want in cases:
+        outs, launched = [], []
+        for _ in range(2):  # the call that captures, then a replay
+            reset_launches()
+            outs.append(run(x))
+            torch.cuda.synchronize()
+            launched.append(launch_counts())
+        ref = eager(x)
+        check(all(c == want for c in launched), f"compiled {label}: "
+              f"launches {launched} per call, expected {want}")
+        check(all(o.dtype == ref.dtype and torch.equal(o, ref)
+                  for o in outs), f"compiled {label}: output differs from "
+              f"the eager packed_apply (max |diff| "
+              f"{max(max_abs_diff(o, ref) for o in outs)})")
+        check(outs[0].data_ptr() != outs[1].data_ptr(),
+              f"compiled {label}: two calls returned one tensor")
+        paths[f"compiled {label}"] = launched[1]
+        compile_s = run.compile_s[(tuple(x.shape), x.dtype)]
+        buf = run.input_buffer(x.shape, x.dtype)
+        buf.copy_(x)
+        busy[label] = (device_busy_ms(lambda: eager(x)),
+                       device_busy_ms(lambda: run(buf)))
+        print(f"[compiled] {label}: first call (warm-up, capture, replay) "
+              f"{compile_s:.3f} s; (block, bgemm, split-K) launches per call "
+              f"{launched[1]} (expected {want}); output {TOLERANCE} equal to "
+              f"the eager packed_apply; device busy eager "
+              f"{ms_text(busy[label][0])}, compiled call "
+              f"{ms_text(busy[label][1])} per forward [{card}]", flush=True)
+
+    # Weights are read where they lie: negate one block's filter in place,
+    # its packed words (which the block kernel reads) and its +-1 form.
+    x = cases[0][3]
+    before = qn(x)
+    name = next(k for k, v in qn.layers.items()
+                if v.get("kind") == "bconv")
+    entry = qn.layers[name]
+    saved = {k: entry[k].clone() for k in ("packed_filter", "filter_pm1")}
+    entry["packed_filter"].copy_(~saved["packed_filter"])
+    entry["filter_pm1"].copy_(-saved["filter_pm1"])
+    changed, ref = qn(x), packed_apply(spec, qn.layers, x, device=dev)
+    for k, v in saved.items():
+        entry[k].copy_(v)
+    restored = qn(x)
+    check(torch.equal(changed, ref) and not torch.equal(changed, before),
+          f"compiled forward after {name}'s filter changed in place: "
+          "differs from the eager forward on the changed weights, or did "
+          "not change")
+    check(torch.equal(restored, before), "compiled forward after the "
+          "filter was restored")
+    print(f"[compiled] weights read in place: {name}'s filter negated with "
+          "copy_ (packed words and +-1 form), the next replay equals the "
+          "eager forward on the changed weights and differs from the one "
+          "before; restored, it equals the first again", flush=True)
+
+    # predict pads its last chunk to the compiled shape.
+    xs = cases[0][3][:100].cpu().numpy()
+    got = qn.predict(xs, batch_size=64)
+    tail = np.concatenate([xs[64:], np.zeros_like(xs[:28])])
+    want = np.concatenate([
+        packed_apply(spec, qn.layers, chunk, device=dev).cpu().numpy()
+        for chunk in (xs[:64], tail)])[:100]
+    check(np.array_equal(got, want), "Interpreter.predict in chunks of 64 "
+          "differs from the eager forward of the same chunks")
+    keys = sorted(shape[0] for shape, _ in qn.compile_s)
+    check(keys == [1, 64, 128], f"compiled batch shapes {keys}")
+    with debug_checks():
+        try:
+            qn(x)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+    check(raised and "debug_checks" in raised, "a compiled call inside "
+          f"kernels.debug_checks() did not raise: {raised}")
+    print(f"[compiled] Interpreter.predict(100 images, batch_size=64) pads "
+          f"its last chunk, equal to the eager forward of the same chunks: "
+          f"graphs at batch {keys}; a call inside "
+          "kernels.debug_checks() raises RuntimeError", flush=True)
+    del qn32, qn8, alex_packed, cases, outs, ref, changed, restored, before
+
+    # benchmark_model: three readings of QuickNet b128, the eager p50 first.
+    eager_ms = eager_p50_ms(lambda: packed_apply(spec, qn.layers, x,
+                                                 device=dev))
+    print(f"[compiled] quicknet b128 bf16 eager forwards (CUDA events "
+          f"around windows of 20): p50 {eager_ms:.4f} ms, "
+          f"{128 / eager_ms * 1e3:.1f} images/s; device busy "
+          f"{ms_text(busy['quicknet b128 bf16'][0])} [{card}]", flush=True)
+    qn_layers = qn.layers
+    del qn
+    runs = []
+    for i in range(COMPILED_BENCH_RUNS):
+        b = benchmark_model("quicknet", batch=128, iters=20, repeats=5,
+                            device=dev, device_busy=True)
+        runs.append(b)
+        print(f"[compiled] benchmark_model quicknet b128 bf16, run {i + 1}: "
+              f"p50 {b['latency_ms_p50']:.4f} ms, {b['images_per_sec']:.1f} "
+              f"images/s, device busy {ms_text(b['device_busy_ms'])}, "
+              f"compile_s {b['compile_s']:.3f}, peak_hbm_mb "
+              f"{b['peak_hbm_mb']} [{card}] {json.dumps(b)}", flush=True)
+    rates = [b["images_per_sec"] for b in runs]
+    check(max(rates) / min(rates) <= COMPILED_SPREAD_LIMIT,
+          f"benchmark_model's images/s spread {max(rates) / min(rates):.4f}"
+          f" > {COMPILED_SPREAD_LIMIT}: {rates}")
+    for b in runs:
+        check(b["device_busy_ms"] is not None, "the profiler saw no device "
+              "time in a replay")
+        check(b["latency_ms_p50"] <= COMPILED_BUSY_LIMIT * b["device_busy_ms"],
+              f"compiled p50 {b['latency_ms_p50']:.4f} ms > "
+              f"{COMPILED_BUSY_LIMIT} x device busy "
+              f"{b['device_busy_ms']:.4f} ms")
+    # The other compiled paths, by benchmark_model's timer.
+    for label, forward, x in (
+            ("quicknet b1 bf16",
+             lambda x: packed_apply(spec, qn_layers, x, device=dev),
+             images(1, spec.input_size)),
+            ("binary_alexnet b128 packed domain",
+             lambda x: packed_apply(alex, alex_layers, x, domain="packed",
+                                   device=dev),
+             images(128, alex.input_size))):
+        eager_ms = eager_p50_ms(lambda: forward(x))
+        t = time_forward(forward, x, iters=20, repeats=5, device_busy=True)
+        print(f"[compiled] {label}: eager p50 {eager_ms:.4f} ms; compiled "
+              f"(time_forward, benchmark_model's timer) p50 "
+              f"{t['latency_ms_p50']:.4f} ms, {t['images_per_sec']:.1f} "
+              f"images/s, device busy {ms_text(t['device_busy_ms'])}, "
+              f"compile_s {t['compile_s']:.3f} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print(f"[compiled] phase 3(b): {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return paths
+
+
 # Phase 6(c): the models the default run trains by the accuracy protocol
 # (``--train-only --models a,b`` trains the ones named).
 TRAIN_MODELS = ("quicknet", "birealnet18", "binary_alexnet",
@@ -1746,7 +1973,7 @@ import json, sys
 from compute_engine_tpu_torch.kernels.bgemm import bgemm
 from compute_engine_tpu_torch.kernels.residual import binary_residual_block
 from compute_engine_tpu_torch.scripts import section_profile
-report = section_profile.profile(128)
+report = section_profile.profile(128, iters=20, repeats=5)
 with open(sys.argv[1], "w") as f:
     json.dump({"report": report, "launches": [
         binary_residual_block.launches, bgemm.launches,
@@ -1811,8 +2038,8 @@ def tools_phase(dev, card):
         else:
             print(f"[tools] baseline {name}: p50 {rec['latency_ms_p50']:.3f} "
                   f"ms, {rec['images_per_sec']:.1f} images/s, device busy "
-                  f"{ms_text(rec['device_busy_ms'])} per forward, first call "
-                  f"{rec['first_call_s']:.2f} s [{card}]", flush=True)
+                  f"{ms_text(rec['device_busy_ms'])} per forward, compile_s "
+                  f"{rec['compile_s']:.2f} [{card}]", flush=True)
     bad = bm.bad_rows(rows)
     check(not bad, f"baseline matrix rows not finite and positive, or "
           f"served results unequal: {bad}")
@@ -1963,6 +2190,17 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     if "--multi-only" in args:
         print(json.dumps({"launches_by_path": multi_device_phase(dev, card,
                                                                  tmp)}))
+        return 0
+    if "--compiled-only" in args:
+        spec = get_model("quicknet")
+        alex = get_model("binary_alexnet")
+        alex_layers = layers_from_numpy(prepare_runtime_arrays(convert_model(
+            alex, init_model(alex, seed=0, randomize_bn=True))), dev)
+        spec8, _, layers8_np = int8_quicknet(dev)
+        print(json.dumps({"launches_by_path": compiled_phase(
+            dev, card, spec, convert_model(spec, init_model(
+                spec, seed=0, randomize_bn=True)), alex, alex_layers, spec8,
+            layers8_np)}))
         return 0
 
     # 2. Kernel against its plain version.
@@ -2236,6 +2474,10 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
             check(zagree == 4, f"{name} kernel={k}: top-1 agreement with the "
                   f"plain path {zagree}/4")
 
+    # 3(b). The compiled forward.
+    compiled = compiled_phase(dev, card, spec, layers, alex, alex_layers,
+                              spec8, layers8_np)
+
     # 4. Timing.
     bench = benchmark_model("quicknet", batch=128, iters=10, warmup=3,
                             repeats=5, device=dev)
@@ -2450,8 +2692,8 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     print(json.dumps({"mma_rates": mma_rates}))
     # (block, bgemm, split-K) launches of each path of phase 5, counted from
     # 0 just before the path to just after it.
-    print(json.dumps({"launches_by_path": {**served, **trained, **sharded,
-                                           **tools}}))
+    print(json.dumps({"launches_by_path": {**compiled, **served, **trained,
+                                           **sharded, **tools}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,7 @@ import torch
 
 from ..core.bitpack import bitpack, bitunpack
 from ..core.types import BITWIDTH, PACKED_DTYPE, ceil_div
-from . import debug
+from . import counts, debug
 
 __all__ = ["bgemm", "bgemm_plain", "plan_bgemm", "uses_split_k", "OUT_KINDS",
            "MAX_BLOCK_KW", "check_padding_bits"]
@@ -237,10 +237,9 @@ def _launch(lhs, rhs, multiplier, bias, thresholds, clamp_min, clamp_max,
         if rc != 0:
             raise RuntimeError("bgemm kernel launch failed: "
                                + lib.ce_error_string(rc).decode())
-        if uses_split_k(kw, max_block_kw):
-            bgemm.splitk_launches += 1
-        else:
-            bgemm.launches += 1
+        counts.count(bgemm, ("splitk_launches"
+                             if uses_split_k(kw, max_block_kw)
+                             else "launches"))
         if checked:
             debug.end(lib, stream)
     return out
@@ -266,7 +265,8 @@ def bgemm(lhs, rhs, multiplier=None, bias=None, thresholds=None, *,
     Returns (M, N) float32 / int8 / int32, or (M, ceil(N/32)) int32 words.
     CPU tensors take ``bgemm_plain``. CUDA tensors take the kernel, which
     counts its one-pass launches in ``bgemm.launches`` and its split-K
-    launches in ``bgemm.splitk_launches``; inside ``kernels.debug_checks()``
+    launches in ``bgemm.splitk_launches`` (under a graph's capture, once
+    per replay: ``kernels.counts``); inside ``kernels.debug_checks()``
     its debug build, which raises ``RuntimeError`` for a broken invariant.
     ``_debug_total_bits`` (a declared bit count) and ``_debug_vote_n`` (the
     kernel votes past N) break the accounting on purpose there.

@@ -29,7 +29,9 @@ vote loop and so exists on the card only; on the CPU a test widens the
 operands itself and holds the result to ``bgemm.check_padding_bits``.
 
 The switch is a context variable: it holds in the thread (or task) that
-enters the block, not in threads that thread starts.
+enters the block, not in threads that thread starts. The checks are an
+eager tool: a compiled forward (``runtime.compiled``) refuses to run inside
+the block, and ``begin`` refuses a launch that a CUDA graph captures.
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ import contextlib
 import contextvars
 import ctypes
 
-__all__ = ["debug_checks", "enabled", "CHECKS", "raise_for", "begin", "end",
-           "require_enabled"]
+import torch
+
+__all__ = ["debug_checks", "enabled", "CHECKS", "NOT_CAPTURED", "raise_for",
+           "begin", "end", "require_enabled"]
 
 CHECKS = {
     1: "bgemm: |pm1 contraction| > total_bits — unpack/total_bits "
@@ -53,6 +57,11 @@ CHECKS = {
 }
 
 _ENABLED = contextvars.ContextVar("ce_debug_checks", default=False)
+
+NOT_CAPTURED = ("the kernels' debug builds wait for each launch to read its "
+                "error word, so a forward under kernels.debug_checks() cannot "
+                "be captured in a CUDA graph; run packed_apply eagerly inside "
+                "debug_checks()")
 
 
 @contextlib.contextmanager
@@ -97,7 +106,11 @@ def bind(lib) -> None:
 
 
 def begin(lib, stream, declared_bits=None, vote_n=None) -> None:
-    """Clear the error word and set the overrides before a launch."""
+    """Clear the error word and set the overrides before a launch. Raises
+    while the current stream captures a CUDA graph: ``end`` waits for the
+    launch, which a capture cannot do."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(NOT_CAPTURED)
     bind(lib)
     rc = lib.ce_debug_begin(int(declared_bits or 0), int(vote_n or 0),
                             stream)

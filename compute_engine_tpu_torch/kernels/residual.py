@@ -35,7 +35,7 @@ import torch
 from ..core.params import BConv2DParams
 from ..core.transforms import OutputTransform
 from ..core.types import Padding
-from . import debug
+from . import counts, debug
 from .bconv2d import bconv2d_mxu_float_in
 
 __all__ = ["binary_residual_block", "binary_residual_block_plain",
@@ -208,7 +208,7 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
         if rc != 0:
             raise RuntimeError("residual block kernel launch failed: "
                                + lib.ce_error_string(rc).decode())
-        binary_residual_block.launches += 1
+        counts.count(binary_residual_block)
         if checked:
             debug.end(lib, stream)
     return out
@@ -229,7 +229,8 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
 
     Returns (N, H, W, C_out) in ``x.dtype``. CPU tensors take the plain
     version; CUDA tensors take the kernel, which counts its launches in
-    ``binary_residual_block.launches``; inside ``kernels.debug_checks()``
+    ``binary_residual_block.launches`` (under a graph's capture, once per
+    replay: ``kernels.counts``); inside ``kernels.debug_checks()``
     its debug build, which raises ``RuntimeError`` when ``|t| > K``.
     ``_debug_k`` declares a wrong K there, on purpose.
     """

@@ -1,9 +1,16 @@
 """Benchmark of packed inference on the card (LCE ``lce_benchmark_model``).
 
-Times whole forwards with CUDA events: warm-up forwards first (the first one
-builds the kernels), then ``repeats`` windows of ``iters`` forwards each; the
-latency of a window is its event time over ``iters``, and the result is the
-median window. There is no CPU fallback: without a card it raises.
+Measures what the JAX package's ``benchmark_model`` measures: the
+steady-state latency of the compiled forward on the device. Two CUDA graphs
+are captured, one of ``iters`` forwards and one of ``2 * iters``, sharing one
+memory pool (``runtime.compiled``); each replay is timed by CUDA events, and
+``(T(2k) - T(k)) / k`` cancels what a replay costs apart from its forwards.
+The latency is the median over ``repeats``. ``compile_s`` is the first call:
+the eager warm-up forwards (the kernels' build or load among them), the
+capture of the ``iters`` graph and its first replay. JAX's loop perturbs its
+input from one forward to the next so that XLA hoists nothing out of the
+loop; a replayed graph hoists nothing, so the port's forwards all read the
+same input. There is no CPU mode: without a card it raises.
 
 Usage:
   python -m compute_engine_tpu_torch.runtime.benchmark --model quicknet \\
@@ -23,12 +30,15 @@ import torch
 from ..converter import load_artifact
 from ..device import resolve_device
 from ..interop import layers_from_numpy
+from ..kernels import counts
 from ..models import (KERNELS, calibrate_model, convert_model, get_model,
                       init_model, packed_apply, prepare_runtime_arrays)
+from .compiled import capture, warm_up
 from .interpreter import artifact_model
 
-__all__ = ["benchmark_model", "prepare_forward", "device_busy_ms",
-           "memory_metrics", "activation_peak_bytes"]
+__all__ = ["benchmark_model", "prepare_forward", "time_forward",
+           "differenced_latency", "device_busy_ms", "memory_metrics",
+           "activation_peak_bytes"]
 
 
 def memory_metrics(layers, x):
@@ -75,9 +85,10 @@ def prepare_forward(model=None, batch=128, seed=0, kernel="auto",
     """The forward that ``benchmark_model`` times, built on ``device``:
     returns ``(spec, layers, x, forward)``, the runtime layers, the input
     batch (normal draws from ``seed``) and a callable that runs
-    ``packed_apply`` on them. The arguments are ``benchmark_model``'s. On a
-    card the allocator's peak is reset once the weights are made, before
-    they are copied there."""
+    ``packed_apply`` on them (``forward(inp)`` on another input of the same
+    shape). The arguments are ``benchmark_model``'s. On a card the
+    allocator's peak is reset once the weights are made, before they are
+    copied there."""
     device = resolve_device(device)
     if artifact_path is not None:
         if int8_pipeline:
@@ -110,8 +121,8 @@ def prepare_forward(model=None, batch=128, seed=0, kernel="auto",
     x = torch.from_numpy(rng.normal(0, 1, (batch, *size, 3))
                          .astype(np.float32)).to(device)
 
-    def forward():
-        return packed_apply(spec, layers, x, kernel=kernel,
+    def forward(inp=x):
+        return packed_apply(spec, layers, inp, kernel=kernel,
                             compute_dtype=compute_dtype, device=device,
                             domain=domain)
 
@@ -139,13 +150,89 @@ def device_busy_ms(forward, n=3):
     return busy / 1e3 / n if busy > 0 else None
 
 
+def differenced_latency(t_k_ms, t_2k_ms, iters, batch):
+    """JAX's differencing arithmetic on the event times (ms) of ``repeats``
+    pairs of replays, one of ``iters`` forwards and one of ``2 * iters``:
+    each pair gives ``(T(2k) - T(k)) / k`` ms per forward (at least 1e-6
+    ms, as JAX floors it at 1e-9 s); returns ``latency_ms_p50`` (the
+    median), ``latency_ms_mean``, ``latency_ms_min`` and ``images_per_sec``
+    at the median."""
+    times = np.maximum((np.asarray(t_2k_ms, np.float64)
+                        - np.asarray(t_k_ms, np.float64)) / iters, 1e-6)
+    p50 = float(np.percentile(times, 50))
+    return {"latency_ms_p50": p50, "latency_ms_mean": float(times.mean()),
+            "latency_ms_min": float(times.min()),
+            "images_per_sec": batch / (p50 / 1e3)}
+
+
+def _iterated(forward, n):
+    def run(inp):
+        for _ in range(n):
+            out = forward(inp)
+        return out
+
+    return run
+
+
+def _replayer(fn, x, pool):
+    """A callable that replays ``fn(x)`` captured into a graph of ``pool``
+    and adds the graph's launches to the kernels' counts."""
+    graph, _, ledger = capture(fn, x, pool)
+
+    def replay():
+        graph.replay()
+        counts.add(ledger)
+
+    return replay
+
+
+def time_forward(forward, x, iters=20, warmup=3, repeats=5,
+                 device_busy=False):
+    """The compiled timing of ``forward(x)`` on the card, as
+    ``benchmark_model`` describes it: ``warmup`` eager forwards (at least
+    one), graphs of ``iters`` and ``2 * iters`` forwards in one pool,
+    ``repeats`` timed pairs of replays. Returns ``compile_s`` and
+    ``differenced_latency``'s keys; with ``device_busy``,
+    ``device_busy_ms``, the profiler's device time of one replay of a
+    one-forward graph. The graphs share their pool because nothing reads
+    their outputs. Every replay adds its kernels' launches to their counts
+    (``kernels.counts``)."""
+    device = x.device
+    pool = torch.cuda.graph_pool_handle()
+    t0 = time.perf_counter()
+    warm_up(forward, x, max(warmup, 1))
+    run_k = _replayer(_iterated(forward, iters), x, pool)
+    run_k()
+    torch.cuda.synchronize(device)
+    compile_s = time.perf_counter() - t0
+    run_2k = _replayer(_iterated(forward, 2 * iters), x, pool)
+    run_2k()
+    t_k, t_2k = [], []
+    for _ in range(repeats):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        run_k()
+        marks[1].record()
+        run_2k()
+        marks[2].record()
+        marks[2].synchronize()
+        t_k.append(marks[0].elapsed_time(marks[1]))
+        t_2k.append(marks[1].elapsed_time(marks[2]))
+    out = {"compile_s": compile_s,
+           **differenced_latency(t_k, t_2k, iters, x.shape[0])}
+    if device_busy:
+        out["device_busy_ms"] = device_busy_ms(_replayer(forward, x, pool))
+    return out
+
+
 def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
                     seed=0, kernel="auto", artifact_path=None,
                     compute_dtype=torch.bfloat16, input_size=None,
                     device="cuda", domain="float", int8_pipeline=False,
                     device_busy=False):
-    """Latency, images/s and memory of ``packed_apply`` at ``batch`` on the
-    card.
+    """Latency, images/s and memory of the compiled packed forward at
+    ``batch`` on the card, timed as the module docstring says
+    (``time_forward``).
 
     Without ``artifact_path`` the weights are random from ``seed``
     (``init_model(randomize_bn=True)``) for ``model`` (QuickNet when none is
@@ -160,11 +247,16 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
     model is calibrated on two random batches of 8 (from ``seed + 1``) and
     converted with input and output ranges.
 
-    Memory: ``weights_mb`` and ``input_mb`` (``memory_metrics``),
-    ``act_peak_mb`` (``activation_peak_bytes`` of one forward) and
-    ``peak_hbm_mb``, the allocator's peak over the whole run, in MiB.
-    ``device_busy`` adds ``device_busy_ms``, the profiler's device time per
-    forward (``device_busy_ms``).
+    The result has the keys of JAX's result (``compile_s``,
+    ``latency_ms_p50``, ``latency_ms_mean``, ``latency_ms_min``,
+    ``images_per_sec``, ``weights_mb``, ``input_mb``, ``act_peak_mb``,
+    ``peak_hbm_mb``) and the port's: ``compute_dtype``, ``domain`` (JAX
+    names it only when it is "packed"), ``int8_pipeline``, and with
+    ``device_busy`` the profiler's device time of one replay,
+    ``device_busy_ms``. Memory: ``weights_mb`` and ``input_mb``
+    (``memory_metrics``), ``act_peak_mb`` (``activation_peak_bytes`` of one
+    eager forward) and ``peak_hbm_mb``, the allocator's peak over the whole
+    run, the graphs' memory pool included, in MiB.
     """
     device = resolve_device(device)
     if device.type != "cuda":
@@ -172,27 +264,8 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
     spec, layers, x, forward = prepare_forward(
         model, batch, seed, kernel, artifact_path, compute_dtype, input_size,
         device, domain, int8_pipeline)
-
-    t0 = time.perf_counter()
-    forward()
-    torch.cuda.synchronize(device)
-    first_call_s = time.perf_counter() - t0
-    for _ in range(max(warmup - 1, 0)):
-        forward()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            forward()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    times = np.asarray(times)
-    p50 = float(np.median(times))
+    timed = time_forward(forward, x, iters, warmup, repeats, device_busy)
     act_peak = activation_peak_bytes(forward)
-    busy = {"device_busy_ms": device_busy_ms(forward)} if device_busy else {}
     return {
         "model": spec.name,
         "batch": batch,
@@ -201,16 +274,11 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
         "domain": domain,
         "int8_pipeline": int8_pipeline,
         "device": torch.cuda.get_device_name(device),
-        "first_call_s": first_call_s,
-        "latency_ms_p50": p50,
-        "latency_ms_min": float(times.min()),
-        "latency_ms_max": float(times.max()),
-        "images_per_sec": batch / (p50 / 1e3),
+        **timed,
         **memory_metrics(layers, x),
         "act_peak_mb": round(act_peak / 2 ** 20, 2),
         "peak_hbm_mb": round(torch.cuda.max_memory_allocated(device)
                              / 2 ** 20, 1),
-        **busy,
     }
 
 

@@ -2,10 +2,17 @@
 
 Counterpart of ``compute_engine_tpu.runtime.Interpreter`` (LCE's
 ``tflite/python/interpreter.py``). Weights are unpacked and moved to the
-device once, at construction; each call runs ``packed_apply`` eagerly.
+device once, at construction. On the card the forward (the widening of int8
+or uint8 images, ``packed_apply`` and the int8 requantisation of the
+output) is compiled once per input shape and dtype, as JAX jits it: one CUDA
+graph captured at the first call and replayed at every later one
+(``runtime.compiled``), reading the weights where they lie. On the CPU each
+call runs the same forward eagerly.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -16,6 +23,7 @@ from ..device import resolve_device
 from ..interop import layers_from_numpy
 from ..models import KERNELS, get_model, packed_apply, prepare_runtime_arrays
 from ..models.zoo import ModelSpec
+from .compiled import CompiledForward
 
 __all__ = ["Interpreter", "artifact_model"]
 
@@ -80,6 +88,13 @@ class Interpreter:
         self.output_zero_point = output_zero_point
         self.layers = layers_from_numpy(prepare_runtime_arrays(layers),
                                         self.device)
+        self._compiled = None
+        if self.device.type == "cuda":
+            # The graphs hold the interpreter weakly, so that their memory
+            # goes with it without waiting for the garbage collector.
+            this = weakref.proxy(self)
+            self._compiled = CompiledForward(lambda x: this._forward(x),
+                                             self.device)
 
     # -- introspection (LCE `interpreter_base.py:30-73`) --------------------
 
@@ -116,15 +131,25 @@ class Interpreter:
         return [self.output_zero_point]
 
     def __call__(self, x) -> torch.Tensor:
-        """Forward one batch; returns a tensor on the interpreter's device.
+        """Forward one batch; returns a fresh tensor on the interpreter's
+        device.
 
-        ``x`` is array-like or a tensor (one already on the device is used
-        where it lies). It crosses to the device in its own dtype: int8 or
-        uint8 images for an ``input_scale`` interpreter are widened to
-        float32 on the device, a quarter of the bytes over the bus."""
+        ``x`` is array-like or a tensor, on the host or on the device. It
+        crosses to the device in its own dtype: int8 or uint8 images for an
+        ``input_scale`` interpreter are widened to float32 on the device, a
+        quarter of the bytes over the bus. On the card the first call at an
+        input (shape, dtype) compiles (``compile_s``) and every call replays
+        the compiled forward; inside ``kernels.debug_checks()`` it raises
+        (run ``packed_apply`` there)."""
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x))
-        x = x.to(self.device, non_blocking=True)
+        if self._compiled is not None:
+            return self._compiled(x)
+        return self._forward(x.to(self.device))
+
+    def _forward(self, x):
+        """The forward of one batch already on the device: what is
+        compiled."""
         if self.input_scale is not None:
             x = ((x.to(torch.float32) - float(self.input_zero_point))
                  * float(self.input_scale))
@@ -138,6 +163,22 @@ class Interpreter:
             q = out / float(self.output_scale) + float(self.output_zero_point)
             out = saturate_int8(round_half_away(q).to(torch.int32))
         return out
+
+    @property
+    def compile_s(self):
+        """Seconds of the first call at each input (shape, dtype) compiled
+        so far; empty on the CPU, where nothing is compiled."""
+        return {} if self._compiled is None else dict(self._compiled.compile_s)
+
+    def input_buffer(self, shape, dtype):
+        """On the card, the compiled forward's static input at (``shape``,
+        ``dtype``): a batch written there and passed to the call is not
+        copied again (``ServingEngine`` stages its batches there). Every call
+        at that key copies into the same buffer, so fill it and call from
+        one thread. None on the CPU."""
+        if self._compiled is None:
+            return None
+        return self._compiled.input_buffer(shape, dtype)
 
     def _numpy(self, x):
         return self(x).cpu().numpy()

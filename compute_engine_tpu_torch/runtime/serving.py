@@ -8,8 +8,12 @@ stack; this is the single-device building block of one.
 
 The batcher is a second thread. PyTorch's current device and current stream
 are per thread: the port's kernels launch on the current stream of their
-input's device, so they follow the batcher. The kernels' launch counts are
-plain attributes, to be read after ``close()``.
+input's device, so they follow the batcher. Over an ``Interpreter`` on the
+card the batcher stages each batch straight into the compiled forward's
+static input, captures the forward's graph at the first batch and replays
+it at every batch, all on its own current stream, where its events mark the
+copies and the forward. The kernels' launch counts are plain attributes, to
+be read after ``close()``.
 """
 
 from __future__ import annotations
@@ -54,14 +58,17 @@ class ServingStats:
         return self.requests / total if total else 0.0
 
 
-def _device_of(infer_fn):
-    """The device ``infer_fn`` takes its batch on, when it says so: an
-    ``Interpreter`` or its bound ``__call__``. None for any other callable
-    (``Interpreter.predict`` among them, which takes arrays)."""
+def _target_of(infer_fn):
+    """The object that takes its batch on a device, when ``infer_fn`` says
+    so (an ``Interpreter`` or its bound ``__call__``), and that device.
+    ``(None, None)`` for any other callable (``Interpreter.predict`` among
+    them, which takes arrays)."""
     if getattr(infer_fn, "__name__", None) == "__call__":
         infer_fn = getattr(infer_fn, "__self__", None)
     device = getattr(infer_fn, "device", None)
-    return device if isinstance(device, torch.device) else None
+    if not isinstance(device, torch.device):
+        return None, None
+    return infer_fn, device
 
 
 class ServingEngine:
@@ -72,7 +79,9 @@ class ServingEngine:
         ``Interpreter``. Given an ``Interpreter`` (anything with a ``device``)
         the engine stacks each batch into one reusable host buffer, pinned
         when the device is a card, copies it to the device itself and passes
-        a tensor there; any other callable gets the host buffer as a numpy
+        a tensor there: into the compiled forward's static input when the
+        target has an ``input_buffer`` for it, so that the forward copies
+        nothing more; any other callable gets the host buffer as a numpy
         array. The result may be a tensor on the card: the whole batch comes
         back with one ``.cpu()``, one synchronisation per batch. A batch is
         never run anywhere but where ``infer_fn`` runs it.
@@ -89,7 +98,7 @@ class ServingEngine:
         self.batch_size = batch_size
         self.max_delay = max_delay_ms / 1e3
         self.stats = ServingStats()
-        self._device = _device_of(infer_fn)
+        self._target, self._device = _target_of(infer_fn)
         self._cuda = self._device is not None and self._device.type == "cuda"
         # One engine-wide input dtype: every batch goes through one buffer
         # and one forward signature, so requests must be homogeneous.
@@ -207,6 +216,10 @@ class ServingEngine:
         start = self._mark()
         if self._device is None:
             batch = self._host_np
+        elif self._cuda and hasattr(self._target, "input_buffer"):
+            batch = self._target.input_buffer(self._host.shape,
+                                              self._host.dtype)
+            batch.copy_(self._host, non_blocking=True)
         else:
             batch = self._host.to(self._device, non_blocking=True)
         return batch, stack_ms, start, self._mark()

@@ -2,12 +2,12 @@
 
 The port of the JAX repo's ``scripts/baseline_matrix.py``. One record per
 (model, batch) configuration, each through ``runtime.benchmark``: the p50
-latency of a forward and images/s by CUDA events, the first call's seconds
-(``first_call_s``: the kernels' build or load and the first launches), the
-memory figures, and the profiler's device-busy ms per forward beside every
-latency. At batch 1 a forward is paced by the host's eager launches, so its
-wall-clock says little about the card; the device-busy time does. Batch-1
-rows of the reference's published models also carry the reference's own
+latency of the compiled forward and images/s (CUDA-graph replays of
+``iters`` and ``2 * iters`` forwards, differenced, as JAX's timer), the
+first call's seconds (``compile_s``: eager warm-up, the kernels' build or
+load among it, capture and the first replay), the memory figures, and the
+profiler's device-busy ms of one replay beside every latency. Batch-1 rows
+of the reference's published models also carry the reference's own
 one-thread latency on a Mac Mini M1 CPU (its published figure, labelled
 with that hardware) and the ratio to it.
 
@@ -68,10 +68,10 @@ def bench_config(model, batch, iters=None, repeats=5, int8=False,
                  device="cuda"):
     """One configuration's record: ``model`` (a zoo name or a ``ModelSpec``)
     at ``batch``, ``kernel="auto"``, the bf16 stream or the true-int8
-    pipeline, timed by ``benchmark_model`` (CUDA events, the median of
-    ``repeats`` windows of ``iters`` forwards, and the profiler's
-    device-busy ms per forward)."""
-    # At batch 1 a forward is a few ms of host launches: longer windows.
+    pipeline, timed by ``benchmark_model`` (the median of ``repeats``
+    differenced pairs of CUDA-graph replays of ``iters`` and ``2 * iters``
+    forwards, and the profiler's device-busy ms of one replay)."""
+    # JAX's chain lengths: a batch-1 forward is short, so a longer chain.
     iters = iters or (200 if batch == 1 else 20)
     r = benchmark_model(model=model, batch=batch, iters=iters, warmup=2,
                         repeats=repeats, kernel="auto", int8_pipeline=int8,
@@ -85,7 +85,7 @@ def bench_config(model, batch, iters=None, repeats=5, int8=False,
         "images_per_sec": r["images_per_sec"],
         "device_busy_ms": r["device_busy_ms"],
         "iters": iters,
-        "first_call_s": r["first_call_s"],
+        "compile_s": r["compile_s"],
         "weights_mb": r["weights_mb"],
     }
     for k in ("peak_hbm_mb", "act_peak_mb"):
@@ -230,9 +230,10 @@ def main(argv=None):
     card = card_line()
     data["_meta"] = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "timer": "benchmark_model: CUDA events around windows of eager "
-                 "forwards, median of 5; device_busy_ms: torch.profiler "
-                 "device time per forward",
+        "timer": "benchmark_model: CUDA-graph replays of iters and 2 iters "
+                 "forwards timed by CUDA events, (T(2k) - T(k)) / k, median "
+                 "of 5; compile_s: warm-up, capture and first replay; "
+                 "device_busy_ms: torch.profiler device time of one replay",
         "weights": "random, init_model(seed=0, randomize_bn=True)",
         "ref_m1_1thread_ms": REF_HARDWARE,
     }

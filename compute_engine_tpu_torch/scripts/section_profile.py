@@ -3,9 +3,12 @@
 The port of the JAX repo's ``scripts/section_profile.py``. It times model
 prefixes (stem_conv; +stem_depthwise; +stem_pointwise; +section_0; ...;
 +head) and subtracts consecutive prefixes, so that each section is measured
-inside the whole forward. A prefix's time is its device-busy ms per forward
-(the profiler's device time, the median of ``repeats`` traces): a host clock
-around eager launches would difference two host-paced numbers.
+inside the whole forward. A prefix's time is its ``benchmark_model``
+latency, as in the JAX script: the compiled forward's CUDA-graph replays,
+``(T(2k) - T(k)) / k``, the median of ``repeats``. Beside it each row
+carries the profiler's device-busy ms of one replay, differenced the same
+way (``device_busy_ms``): the sum of the kernels' times, without the gaps
+between them.
 
 Each row carries its floors, from the bytes and multiply-adds of the JAX
 script's ``floors`` held against the H100's data-sheet peaks:
@@ -21,7 +24,7 @@ script's ``floors`` held against the H100's data-sheet peaks:
 
 Usage (on the card):
   python -m compute_engine_tpu_torch.scripts.section_profile [--batch 128] \\
-      [--out FILE]
+      [--iters 40] [--repeats 7] [--out FILE]
 """
 
 from __future__ import annotations
@@ -30,12 +33,11 @@ import argparse
 import json
 import os
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.zoo import ModelSpec
-from ..runtime.benchmark import device_busy_ms, prepare_forward
+from ..runtime.benchmark import benchmark_model
 
 __all__ = ["SECTION_FILTERS", "SECTION_BLOCKS", "ROWS", "make_prefix_spec",
            "prefixes", "section_macs", "floors", "profile", "main"]
@@ -153,29 +155,35 @@ def floors(name, batch):
             "hbm_floor_s": nbytes / HBM_B_PER_S, "note": note}
 
 
-def profile(batch=128, n=5, repeats=3, device="cuda"):
-    """Each prefix's device-busy ms per forward at ``batch`` (random weights
-    from seed 0), differenced into rows. Returns the report: ``sections``
-    (one row per ``ROWS`` name) and ``whole_model``."""
+def profile(batch=128, iters=40, repeats=7, device="cuda"):
+    """Each prefix's ``benchmark_model`` latency at ``batch`` (random
+    weights from seed 0; ``iters`` and ``repeats`` are JAX's defaults),
+    differenced into rows, with the device-busy ms of one replay beside.
+    Returns the report: ``sections`` (one row per ``ROWS`` name) and
+    ``whole_model``."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("section_profile reads the card's device time")
-    times = []
+    times, busy = [], []
     for label, spec in prefixes():
-        _, _, _, forward = prepare_forward(spec, batch, device=device)
-        busy = [device_busy_ms(forward, n=n) for _ in range(repeats)]
-        if any(b is None for b in busy):
+        r = benchmark_model(spec, batch=batch, iters=iters, warmup=2,
+                            repeats=repeats, device=device, device_busy=True)
+        if r["device_busy_ms"] is None:
             raise RuntimeError(f"{label}: the profiler saw no device time")
-        times.append(float(np.median(busy)))
-        print(f"{label:16s} cumulative device busy {times[-1]:8.4f} ms",
-              flush=True)
-    rows, prev = [], 0.0
-    for name, t in zip(ROWS, times):
+        times.append(r["latency_ms_p50"])
+        busy.append(r["device_busy_ms"])
+        print(f"{label:16s} cumulative {times[-1]:8.4f} ms "
+              f"({r['images_per_sec']:.0f} images/s), device busy "
+              f"{busy[-1]:8.4f} ms", flush=True)
+    rows, prev, prev_busy = [], 0.0, 0.0
+    for name, t, b in zip(ROWS, times, busy):
         dt, prev = t - prev, t
+        db, prev_busy = b - prev_busy, b
         f = floors(name, batch)
         bound_ms = max(f["mac_floor_s"], f["hbm_floor_s"]) * 1e3
-        row = {"name": name, "ms": dt, "macs": f["macs"],
-               "bytes": f["bytes"], "mac_floor_ms": f["mac_floor_s"] * 1e3,
+        row = {"name": name, "ms": dt, "device_busy_ms": db,
+               "macs": f["macs"], "bytes": f["bytes"],
+               "mac_floor_ms": f["mac_floor_s"] * 1e3,
                "hbm_floor_ms": f["hbm_floor_s"] * 1e3, "bound_ms": bound_ms,
                "bound_kind": ("hbm" if f["hbm_floor_s"] >= f["mac_floor_s"]
                               else "mac"),
@@ -193,11 +201,15 @@ def profile(batch=128, n=5, repeats=3, device="cuda"):
     composite = sum(r["bound_ms"] for r in rows)
     total_macs = sum(section_macs(s, batch) for s in range(4))
     return {
-        "batch": batch, "timer": f"torch.profiler device time per forward, "
-                                 f"median of {repeats} traces of {n}",
+        "batch": batch, "iters": iters,
+        "timer": f"benchmark_model: CUDA-graph replays of {iters} and "
+                 f"{2 * iters} forwards, (T(2k) - T(k)) / k, median of "
+                 f"{repeats}; device_busy_ms: torch.profiler device time of "
+                 "one replay of a one-forward graph",
         "sections": rows,
         "whole_model": {
-            "ms": times[-1], "images_per_sec_device": batch / times[-1] * 1e3,
+            "ms": times[-1], "device_busy_ms": busy[-1],
+            "images_per_sec": batch / times[-1] * 1e3,
             "binary_gmacs": total_macs / 1e9,
             "composite_bound_ms": composite,
             "pct_of_composite_bound": 100 * composite / times[-1],
@@ -217,9 +229,11 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--iters", type=int, default=40)
+    p.add_argument("--repeats", type=int, default=7)
     p.add_argument("--out", default=OUT)
     args = p.parse_args(argv)
-    report = profile(args.batch)
+    report = profile(args.batch, args.iters, args.repeats)
     report = {"card": card_line(), "torch": torch.__version__,
               "cuda": torch.version.cuda, **report}
     for row in report["sections"]:

@@ -6,6 +6,12 @@ function that shows in both of the card's tools: an NVTX range (Nsight
 Systems) and a ``torch.profiler.record_function`` span (the Chrome trace and
 ``key_averages()``); ``trace`` captures a ``torch.profiler`` trace of the
 enclosed block into a directory.
+
+A span inside a forward that a CUDA graph holds (``runtime.compiled``: an
+``Interpreter`` on the card, ``benchmark_model``) is recorded once, when the
+graph is captured, and not at its replays, which run no Python; to read
+time by span or by kernel name, profile ``packed_apply``, which runs
+eagerly.
 """
 
 from __future__ import annotations

@@ -42,7 +42,8 @@ NEW_MODULES = ["converter.cli", "converter.graph_import",
                "parallel.partition", "runtime.distributed_serving",
                "runtime.multiprocess", "scripts", "scripts.accuracy_fixtures",
                "scripts.baseline_matrix", "scripts.section_profile",
-               "scripts.tp_scaling_report", "examples", "examples.e2e_smoke"]
+               "scripts.tp_scaling_report", "examples", "examples.e2e_smoke",
+               "runtime.compiled", "kernels.counts"]
 
 
 def test_port_imports_no_jax():

@@ -195,8 +195,8 @@ def _stub_benchmark_model(monkeypatch):
         return {"model": model.name, "batch": batch, "kernel": kernel,
                 "compute_dtype": "bfloat16", "domain": "float",
                 "int8_pipeline": int8_pipeline, "device": "card",
-                "first_call_s": 1.5, "latency_ms_p50": 4.0,
-                "latency_ms_min": 3.5, "latency_ms_max": 5.0,
+                "compile_s": 1.5, "latency_ms_p50": 4.0,
+                "latency_ms_mean": 4.2, "latency_ms_min": 3.5,
                 "images_per_sec": batch / 4e-3, "weights_mb": 0.25,
                 "input_mb": 0.01, "act_peak_mb": 0.5, "peak_hbm_mb": 9.0,
                 "device_busy_ms": 0.75}
@@ -207,9 +207,9 @@ def _stub_benchmark_model(monkeypatch):
 
 def test_bench_config_keys_are_the_jax_scripts(monkeypatch):
     """A tiny spec: the record ``bench_config`` assembles from
-    ``benchmark_model`` has the JAX script's record keys, with
-    ``first_call_s`` in place of ``compile_s`` and the device-busy time
-    beside the latency."""
+    ``benchmark_model`` has the JAX script's record keys, ``compile_s``
+    among them, with the measured peak HBM in place of JAX's estimate and
+    the device-busy time beside the latency."""
     calls = _stub_benchmark_model(monkeypatch)
     jbm = _load_jax_script("baseline_matrix")
     want = jbm.bench_config(JSPEC, 2, iters=2, repeats=1)
@@ -217,13 +217,13 @@ def test_bench_config_keys_are_the_jax_scripts(monkeypatch):
     assert calls == [dict(model=SPEC, batch=2, iters=2, repeats=1,
                           kernel="auto", int8_pipeline=False,
                           device_busy=True)]
-    assert set(got) == ((set(want) - {"compile_s", "peak_hbm_est_mb"})
-                        | {"first_call_s", "device_busy_ms", "peak_hbm_mb"})
+    assert set(got) == ((set(want) - {"peak_hbm_est_mb"})
+                        | {"device_busy_ms", "peak_hbm_mb"})
     assert got["model"] == SPEC.name  # JAX's record holds what it was given
     assert want["model"] is JSPEC
     assert got["batch"] == 2 and got["iters"] == 2
     assert got["latency_ms_p50"] == 4.0 and got["per_image_ms_p50"] == 2.0
-    assert (got["device_busy_ms"], got["first_call_s"]) == (0.75, 1.5)
+    assert (got["device_busy_ms"], got["compile_s"]) == (0.75, 1.5)
     assert (got["weights_mb"], got["peak_hbm_mb"]) == (0.25, 9.0)
 
 
