@@ -15,7 +15,8 @@ output channels):
              the shard it holds. Step t's copy to the next slot runs on a
              side stream, with an event for the wait, so it can overlap the
              conv of step t. No all-gather anywhere (the collective log shows
-             it). Output: batch-sharded, full channels.
+             it). Output: batch-sharded, full channels. With every slot on
+             one card the ring can be captured into a CUDA graph.
 
 One process drives every slot (``parallel.mesh``): a collective is a copy
 between slots, ``Tensor.to(device, non_blocking=True)``, which PyTorch
@@ -139,7 +140,6 @@ def _tp_bconv2d_pipelined(packed_input, packed_filter, transform, params,
     w = device_put(packed_filter, NamedSharding(mesh, (axis, None, None,
                                                        None)))
     t = [device_put(a, NamedSharding(mesh, (axis,))) for a in arrays]
-    sides = {}  # a side stream per card that sends
     out = [None] * mesh.size
     for idx, _ in mesh.slots():
         if idx[mesh.axis_names.index(axis)]:
@@ -153,7 +153,7 @@ def _tp_bconv2d_pipelined(packed_input, packed_filter, transform, params,
             sent = None
             if step < n_shards - 1:
                 sent = [_send(held[j], ring[j], ring[(j + 1) % n_shards],
-                              mesh, sides, log)
+                              mesh, log)
                         for j in range(n_shards)]
             for j, i in enumerate(slots):
                 w_t, *tr_t = held[j]
@@ -224,35 +224,51 @@ def record(log, kind, tensors, src, dst, mesh):
                     "local": mesh.devices[src] == mesh.devices[dst]})
 
 
-def to_slot(t, src, dst, mesh, log=None, kind="broadcast"):
+def to_slot(t, src, dst, mesh, log=None, kind="broadcast", move=None):
     """``t``, held by slot ``src``, on slot ``dst``'s device: recorded as
     ``kind`` unless the two slots are one. PyTorch orders the copy against
     both devices' current streams; between slots of one device the tensor
-    is used where it lies."""
+    is used where it lies. ``move(t, device)``, when given, makes every copy
+    between two slots in place of ``Tensor.to`` (the compiled sharded
+    forward ends a segment there)."""
     if src != dst:
         record(log, kind, [t], src, dst, mesh)
+        if move is not None:
+            return move(t, mesh.devices[dst])
     return t.to(mesh.devices[dst], non_blocking=True)
 
 
-def all_gather(pieces, srcs, dst, mesh, log=None, dim=-1):
+def all_gather(pieces, srcs, dst, mesh, log=None, dim=-1, move=None):
     """The ``pieces`` that slots ``srcs`` hold, concatenated along ``dim``
     on slot ``dst``: one "all_gather" record per piece from another slot."""
-    return torch.cat([to_slot(p, s, dst, mesh, log, "all_gather")
+    return torch.cat([to_slot(p, s, dst, mesh, log, "all_gather", move)
                       for p, s in zip(pieces, srcs)], dim=dim)
 
 
-def _send(tensors, src, dst, mesh, sides, log):
-    """Start copying ``tensors`` from slot ``src`` to slot ``dst``: on a
-    side stream of the sending card, after what that card's current stream
-    has queued, with an event to wait for. Returns (copies, event)."""
+# The ring's side stream of each sending card, made at its first use, which
+# is eager: a CUDA graph that captures the ring (one card's slots) forks its
+# capture into this stream and joins it back at the receive, and creates no
+# stream while it captures.
+_RING_STREAMS = {}
+
+
+def _ring_stream(device):
+    stream = _RING_STREAMS.get(device)
+    if stream is None:
+        stream = _RING_STREAMS[device] = torch.cuda.Stream(device=device)
+    return stream
+
+
+def _send(tensors, src, dst, mesh, log):
+    """Start copying ``tensors`` from slot ``src`` to slot ``dst``: on the
+    ring's side stream of the sending card, after what that card's current
+    stream has queued, with an event to wait for. Returns (copies, event)."""
     record(log, "ppermute", tensors, src, dst, mesh)
     src_dev, dst_dev = mesh.devices[src], mesh.devices[dst]
     if src_dev.type != "cuda":
         return [t.to(dst_dev) if dst_dev != src_dev else t.clone()
                 for t in tensors], None
-    side = sides.get(src_dev)
-    if side is None:
-        side = sides[src_dev] = torch.cuda.Stream(device=src_dev)
+    side = _ring_stream(src_dev)
     side.wait_stream(torch.cuda.current_stream(src_dev))
     with torch.cuda.stream(side):
         copies = [t.to(dst_dev, non_blocking=True) if dst_dev != src_dev

@@ -36,7 +36,16 @@ home slot its whole weights.
 
 Every copy between slots is recorded in ``log`` when one is passed, by
 ``collective.record``: "broadcast" (an activation to a model slot),
-"all_gather" (a slice to the home slot).
+"all_gather" (a slice to the home slot); ``move``, when passed, makes each
+of them (the compiled sharded forward, ``runtime.compiled``, ends a segment
+there under ``ShardedInterpreter(_split_at_slots=True)``).
+
+The forward of one data group (``group_apply``) is the unit that the
+compiled sharded forward captures; ``sharded_apply`` is the loop over the
+groups and the concatenation of their outputs. Nothing in a group's forward
+reads a value on the host, and a sharded array that a replicated layer
+reads is joined on the home slot at its first read, so that a forward after
+the first makes no copy of weights.
 """
 
 from __future__ import annotations
@@ -54,8 +63,8 @@ from ..models.builder import (Int8Tensor, PackedBuilder, _BinaryStream,
 from .collective import all_gather, to_slot
 from .sharding import ShardedTensor
 
-__all__ = ["sharded_apply", "partition_layers", "ShardedBuilder",
-           "shards_layer"]
+__all__ = ["sharded_apply", "group_apply", "partition_layers",
+           "ShardedBuilder", "shards_layer"]
 
 # The array whose spec decides whether a layer of each kind is sharded.
 _SHARD_KEY = {"bconv": "packed_filter", "conv": "kernel",
@@ -167,10 +176,11 @@ class ShardedBuilder(PackedBuilder):
     home slot, sharded layers on every model slot (a ``PackedBuilder`` each,
     over the slot's arrays), gathered on the home slot."""
 
-    def __init__(self, group: _Group, log=None, **kw):
+    def __init__(self, group: _Group, log=None, move=None, **kw):
         super().__init__(group.layers, **kw)
         self.group = group
         self.log = log
+        self.move = move
         self.slots = [PackedBuilder(layers, **kw)
                       for layers in group.slot_layers]
 
@@ -183,12 +193,14 @@ class ShardedBuilder(PackedBuilder):
     def _broadcast(self, t, j):
         """The replicated activation ``t`` on model slot ``j``."""
         g = self.group
-        return to_slot(t, g.coords[0], g.coords[j], g.mesh, self.log)
+        return to_slot(t, g.coords[0], g.coords[j], g.mesh, self.log,
+                       move=self.move)
 
     def _gather(self, pieces):
         """The slots' channel slices, concatenated on the home slot."""
         g = self.group
-        return all_gather(pieces, g.coords, g.coords[0], g.mesh, self.log)
+        return all_gather(pieces, g.coords, g.coords[0], g.mesh, self.log,
+                          move=self.move)
 
     def _slot_input(self, x, j):
         """A binary layer's input on slot ``j``: a packed stream stays lazy
@@ -296,6 +308,30 @@ def _final(out):
     return out
 
 
+def _scope(compute_dtype):
+    """Inference mode, and exact float32 for a float32 forward."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.inference_mode())
+    if compute_dtype == torch.float32:
+        stack.enter_context(exact_float32())
+    return stack
+
+
+def group_apply(spec, group, x, kernel="auto", compute_dtype=torch.bfloat16,
+                residual_block=binary_residual_block, gemm=bgemm,
+                domain="float", log=None, move=None):
+    """The forward of one data ``group`` (``partition_layers``) on ``x``,
+    its share of the batch on the group's home slot; returns the output
+    there. ``move`` makes the copies between slots (``to_slot``); the other
+    arguments are ``sharded_apply``'s."""
+    with _scope(compute_dtype):
+        builder = ShardedBuilder(
+            group, log=log, move=move, kernel=kernel,
+            compute_dtype=compute_dtype, residual_block=residual_block,
+            gemm=gemm, domain=domain)
+        return _final(spec.forward(builder, x))
+
+
 def sharded_apply(spec, sharded_layers, x, mesh, kernel="auto",
                   compute_dtype=torch.bfloat16,
                   residual_block=binary_residual_block, gemm=bgemm,
@@ -317,15 +353,12 @@ def sharded_apply(spec, sharded_layers, x, mesh, kernel="auto",
         raise ValueError(f"batch {x.shape[0]} not divisible by the mesh's "
                          f"data axis of size {dp}")
     per = x.shape[0] // dp
-    exact = (exact_float32() if compute_dtype == torch.float32
-             else contextlib.nullcontext())
-    outs = []
-    with torch.inference_mode(), exact:
-        for d, group in enumerate(groups):
-            builder = ShardedBuilder(
-                group, log=log, kernel=kernel, compute_dtype=compute_dtype,
-                residual_block=residual_block, gemm=gemm, domain=domain)
-            x_d = x[d * per:(d + 1) * per].to(group.home, non_blocking=True)
-            outs.append(_final(spec.forward(builder, x_d)))
+    with _scope(compute_dtype):
+        outs = [group_apply(spec, group,
+                            x[d * per:(d + 1) * per].to(group.home,
+                                                        non_blocking=True),
+                            kernel, compute_dtype, residual_block, gemm,
+                            domain, log)
+                for d, group in enumerate(groups)]
         first = groups[0].home
         return torch.cat([o.to(first, non_blocking=True) for o in outs])

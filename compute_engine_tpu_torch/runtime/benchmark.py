@@ -37,8 +37,10 @@ from .compiled import capture, warm_up
 from .interpreter import artifact_model
 
 __all__ = ["benchmark_model", "prepare_forward", "time_forward",
-           "differenced_latency", "device_busy_ms", "memory_metrics",
-           "activation_peak_bytes"]
+           "time_calls", "differenced_latency", "device_busy_ms",
+           "memory_metrics", "activation_peak_bytes"]
+
+_BUSY_TRACES = 2  # profiler traces device_busy_ms takes at most
 
 
 def memory_metrics(layers, x):
@@ -132,22 +134,28 @@ def prepare_forward(model=None, batch=128, seed=0, kernel="auto",
 def device_busy_ms(forward, n=3):
     """Device time per call of ``forward`` on the card: the sum of the
     kernels' and copies' device time in a ``torch.profiler`` trace of ``n``
-    calls (after one untraced call), over ``n``. ``None`` when the profiler
-    saw no device time. Unlike a host clock around eager calls it does not
-    move with the rate at which the host enqueues launches."""
+    calls (after one untraced call), over ``n``. A trace that holds no
+    device record is taken again, up to ``_BUSY_TRACES`` in all (one such
+    trace was seen on the H100, in a process started beside another that
+    had profiled for minutes); ``None`` when none held any. Unlike a host
+    clock around eager calls it does not move with the rate at which the
+    host enqueues launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     forward()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            forward()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / n if busy > 0 else None
+    for _ in range(_BUSY_TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                forward()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / n
+    return None
 
 
 def differenced_latency(t_k_ms, t_2k_ms, iters, batch):
@@ -222,6 +230,35 @@ def time_forward(forward, x, iters=20, warmup=3, repeats=5,
            **differenced_latency(t_k, t_2k, iters, x.shape[0])}
     if device_busy:
         out["device_busy_ms"] = device_busy_ms(_replayer(forward, x, pool))
+    return out
+
+
+def time_calls(call, x, iters=20, repeats=5):
+    """The timing of ``call(x)`` where each call replays captured graphs (a
+    ``ShardedInterpreter`` on the card, whose forward may span cards and so
+    is no one graph to capture again): ``time_forward``'s differencing over
+    windows of ``iters`` and ``2 * iters`` calls, timed by CUDA events on
+    the current stream of the calling thread's card (where the calls leave
+    their output), the median of ``repeats``. The first call, which
+    compiles, is not timed. Returns ``differenced_latency``'s keys and
+    ``device_busy_ms``, the profiler's device time of one call."""
+    call(x)
+    torch.cuda.synchronize()
+    t_k, t_2k = [], []
+    for _ in range(repeats):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        for _ in range(iters):
+            call(x)
+        marks[1].record()
+        for _ in range(2 * iters):
+            call(x)
+        marks[2].record()
+        marks[2].synchronize()
+        t_k.append(marks[0].elapsed_time(marks[1]))
+        t_2k.append(marks[1].elapsed_time(marks[2]))
+    out = differenced_latency(t_k, t_2k, iters, x.shape[0])
+    out["device_busy_ms"] = device_busy_ms(lambda: call(x))
     return out
 
 

@@ -12,12 +12,26 @@ One process drives every slot, as in JAX's single-controller model. Host
 loss rebuilds the mesh over the surviving hosts' devices; continuous
 batching keeps absorbing requests during the switch (a batch in flight on
 the old interpreter finishes; the queue drains onto the new one).
+
+On the card the sharded forward is compiled, as JAX jits it over the mesh:
+the first call at an input (shape, dtype) warms up and captures it into
+CUDA graphs, and every later call replays them (``runtime.compiled``).
+How depends on where the slots lie (``plan_case``): where every slot is one
+card, the whole forward is one graph (case A); where each data group's
+slots are one card, each group is a graph on its card, the groups' graphs
+replayed one after the other without waiting, so that the cards run at
+once (B); where a group's slots span cards, each group is captured as
+segments, one graph per card's run of work between two copies that cross
+cards, with the copies between them (C). The server captures on its batcher
+thread, and a reshard's new interpreter captures at its first batch, as JAX
+jits again after a reshard.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -26,11 +40,35 @@ from ..models import get_model, prepare_runtime_arrays
 from ..models.zoo import ModelSpec
 from ..parallel import make_mesh, shard_artifact
 from ..parallel.mesh import visible_cards
-from ..parallel.partition import partition_layers, sharded_apply
+from ..parallel.partition import group_apply, partition_layers, sharded_apply
+from .compiled import CompiledParts, split
 from .health import HeartbeatMonitor
 from .serving import ServingEngine
 
-__all__ = ["ShardedInterpreter", "MultiHostServer"]
+__all__ = ["ShardedInterpreter", "MultiHostServer", "plan_case"]
+
+
+def plan_case(groups, split_at_slots=False):
+    """How the sharded forward over ``groups`` compiles, ``groups`` being
+    each data group's slot devices: None where a slot is not a card
+    (nothing is captured), "A" where every slot is one card, "B" where each
+    group's slots are one card, "C" where a group's slots span cards or
+    ``split_at_slots`` asks for segments (see the module docstring). A card
+    named without an index is card 0."""
+    groups = [[torch.device(d) for d in g] for g in groups]
+    if any(d.type != "cuda" for g in groups for d in g):
+        return None
+    if split_at_slots:
+        return "C"
+    cards = [{d.index or 0 for d in g} for g in groups]
+    if len(set().union(*cards)) == 1:
+        return "A"
+    return "B" if all(len(c) == 1 for c in cards) else "C"
+
+
+def _split_move(t, device):
+    """A copy between slots that ends a segment (``_split_at_slots``)."""
+    return split(t.to(device, non_blocking=True))
 
 
 class ShardedInterpreter:
@@ -42,11 +80,19 @@ class ShardedInterpreter:
         ``devices[:dp * tp]``, with ``dp`` all the devices ``tp`` leaves.
       devices: the slots' devices, every visible card by default (and with
         no card the call raises); may repeat a device.
-      kernel, compute_dtype: as ``packed_apply``'s.
+      kernel, compute_dtype, domain: as ``packed_apply``'s (``domain`` is
+        the port's: JAX's ``ShardedInterpreter`` runs the float domain).
+      _split_at_slots: on the card, capture each data group as segments
+        split at every copy between slots, on one card too (case C): the
+        segment plan where no second card exists. Not a user option.
+
+    On the card a call replays the compiled forward (``compile_s``,
+    ``plan``); on ``cpu`` slots it runs ``sharded_apply`` eagerly.
     """
 
     def __init__(self, model, layers, mesh=None, dp=None, tp=1,
-                 kernel="auto", compute_dtype=torch.bfloat16, devices=None):
+                 kernel="auto", compute_dtype=torch.bfloat16, devices=None,
+                 domain="float", _split_at_slots=False):
         if isinstance(model, str):
             model = get_model(model)
         if not isinstance(model, ModelSpec):
@@ -61,19 +107,74 @@ class ShardedInterpreter:
         self.mesh = mesh
         self.layers = shard_artifact(prepare_runtime_arrays(layers), mesh)
         self._groups = partition_layers(self.layers, mesh)
-        self._kw = dict(kernel=kernel, compute_dtype=compute_dtype)
+        self._kw = dict(kernel=kernel, compute_dtype=compute_dtype,
+                        domain=domain)
+        self.case = plan_case([g.devices for g in self._groups],
+                              _split_at_slots)
+        self._compiled = None
+        if self.case is not None:
+            # The graphs hold the interpreter weakly, so that their memory
+            # goes with it without waiting for the garbage collector.
+            this = weakref.proxy(self)
+            first = mesh.devices.flat[0]
+            if self.case == "A":
+                parts = [(lambda x: this._forward(x), first, [first])]
+            else:
+                move = _split_move if _split_at_slots else None
+                parts = [(lambda x, g=g: this._group_forward(g, x, move),
+                          g.home, g.devices) for g in self._groups]
+            self._compiled = CompiledParts(parts, first)
 
     @property
     def data_parallelism(self):
         return self.mesh.shape["data"]
 
     def __call__(self, x):
-        """Forward one global batch (array-like or tensor); returns a tensor
-        on the mesh's first slot."""
+        """Forward one global batch (array-like or tensor, on the host or a
+        card); returns a fresh tensor on the mesh's first slot. On the card
+        the first call at an input (shape, dtype) compiles (``compile_s``)
+        and every call replays the compiled forward; inside
+        ``kernels.debug_checks()`` it raises (run ``sharded_apply``
+        there)."""
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x, np.float32))
-        return sharded_apply(self.spec, self.layers, x.to(torch.float32),
-                             self.mesh, groups=self._groups, **self._kw)
+        x = x.to(torch.float32)
+        if self._compiled is not None:
+            return self._compiled(x)
+        return self._forward(x)
+
+    def _forward(self, x):
+        """The whole sharded forward, eagerly: what case A compiles."""
+        return sharded_apply(self.spec, self.layers, x, self.mesh,
+                             groups=self._groups, **self._kw)
+
+    def _group_forward(self, group, x, move):
+        """One data group's forward: what cases B and C compile."""
+        return group_apply(self.spec, group, x, move=move, **self._kw)
+
+    @property
+    def compile_s(self):
+        """Seconds of the first call at each input (shape, dtype) compiled
+        so far; empty where nothing is compiled (``cpu`` slots)."""
+        return {} if self._compiled is None else dict(self._compiled.compile_s)
+
+    @property
+    def plan(self):
+        """What a call does on the card: the ``case`` ("A", "B", "C"; None
+        on ``cpu`` slots), and by input (shape, dtype) compiled so far the
+        ``graphs`` it replays and its ``host_steps`` (replays and copies)."""
+        c = self._compiled
+        return {"case": self.case,
+                "graphs": {} if c is None else dict(c.graphs),
+                "host_steps": {} if c is None else dict(c.host_steps)}
+
+    def input_buffer(self, shape, dtype):
+        """In case A, the compiled forward's static input at (``shape``,
+        ``dtype``): a batch written there and passed to the call is not
+        copied again. Fill it and call from one thread. None otherwise."""
+        if self._compiled is None:
+            return None
+        return self._compiled.input_buffer(shape, dtype)
 
 
 class MultiHostServer:

@@ -11,6 +11,11 @@ card. Without a card and without ``--device cpu`` a worker raises: it never
 carries on on the CPU. NCCL puts one rank on each card; two ranks on one
 card take Gloo, with their outputs staged through the host for the gather.
 
+Each rank's forward is compiled on the card, as JAX jits the worker's
+forward: ``Interpreter`` (one CUDA graph per batch shape) or, with
+``--local-device-count``, ``ShardedInterpreter`` over the rank's slots; the
+``all_gather`` of the outputs stays outside the graphs.
+
 ``worker_main`` is the per-process entry (also
 ``python -m compute_engine_tpu_torch.runtime.multiprocess``);
 ``launch_workers`` spawns a local N-process group of them.
@@ -98,7 +103,8 @@ def worker_main(argv=None):
     import torch.distributed as dist
 
     from ..converter import load_artifact
-    from ..models import packed_apply, prepare_runtime_arrays
+    from .distributed_serving import ShardedInterpreter
+    from .interpreter import Interpreter
 
     dev = initialize_worker(args.coordinator, args.num_processes,
                             args.process_id, args.device, args.backend)
@@ -116,17 +122,14 @@ def worker_main(argv=None):
         x_local = torch.from_numpy(
             x[args.process_id * per:(args.process_id + 1) * per]).to(dev)
         if args.local_device_count:
-            from ..parallel import make_mesh, shard_artifact
-            from ..parallel.partition import sharded_apply
-
-            mesh = make_mesh((args.local_device_count, 1),
-                             devices=[dev] * args.local_device_count)
-            out = sharded_apply(
-                spec, shard_artifact(prepare_runtime_arrays(layers), mesh),
-                x_local, mesh, compute_dtype=torch.float32)
+            forward = ShardedInterpreter(
+                spec, layers, dp=args.local_device_count,
+                compute_dtype=torch.float32,
+                devices=[dev] * args.local_device_count)
         else:
-            out = packed_apply(spec, layers, x_local,
-                               compute_dtype=torch.float32, device=dev)
+            forward = Interpreter(spec, layers, compute_dtype=torch.float32,
+                                  device=dev)
+        out = forward(x_local)
         # Gloo gathers host tensors: stage a card's output through the host.
         backend = dist.get_backend()
         staged = (out.cpu() if backend == "gloo" else out).contiguous()

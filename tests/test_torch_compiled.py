@@ -27,7 +27,6 @@ import threading
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from compute_engine_tpu.models import tiny_quicknet as jtiny_quicknet
 
@@ -43,108 +42,20 @@ from compute_engine_tpu_torch.runtime.compiled import CompiledForward
 from compute_engine_tpu_torch.runtime.serving import ServingEngine
 from compute_engine_tpu_torch.scripts import section_profile as sp
 
+import _torch_card_standins as standins
 import _torch_parity as parity
+from _torch_card_standins import FakeEvent, FakeGraph
 
 REPO = pathlib.Path(__file__).parents[1]
 CPU = torch.device("cpu")
 WAIT = 30
 
 
-class _Tape(TorchDispatchMode):
-    """Records each operation with its arguments and the tensors it made."""
-
-    def __init__(self, ops):
-        super().__init__()
-        self.ops = ops
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten._local_scalar_dense.default:
-            raise RuntimeError("a captured forward read a tensor's value on "
-                               "the host")
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        made = out if isinstance(out, (tuple, list)) else (out,)
-        self.ops.append((func, args, kwargs,
-                         [t for t in made if isinstance(t, torch.Tensor)]))
-        return out
-
-
-class FakeGraph:
-    """Stand-in for ``torch.cuda.CUDAGraph``."""
-
-    made = []
-
-    def __init__(self):
-        self.ops, self.replays = [], 0
-        FakeGraph.made.append(self)
-
-    @torch.inference_mode()
-    def replay(self):
-        self.replays += 1
-        for func, args, kwargs, outs in self.ops:
-            new = func(*args, **kwargs)
-            new = new if isinstance(new, (tuple, list)) else (new,)
-            for old, now in zip(outs, [t for t in new
-                                       if isinstance(t, torch.Tensor)]):
-                if old is not now:
-                    old.copy_(now)
-
-
-class FakeStream:
-    def wait_stream(self, other):
-        pass
-
-
-class FakeEvent:
-    """Stand-in for ``torch.cuda.Event``: ``elapsed_time`` hands out the
-    queued times."""
-
-    queue = []
-
-    def __init__(self, enable_timing=False):
-        pass
-
-    def record(self, stream=None):
-        pass
-
-    def synchronize(self):
-        pass
-
-    def elapsed_time(self, other):
-        return FakeEvent.queue.pop(0) if FakeEvent.queue else 0.0
-
-
 @pytest.fixture
 def fake_card(monkeypatch):
     """The card's graph, stream and event objects replaced by stand-ins;
     returns the record of captures."""
-    record = {"captures": [], "fail": None}
-    FakeGraph.made = []
-    FakeEvent.queue = []
-
-    @contextlib.contextmanager
-    def graph(g, pool=None, stream=None, capture_error_mode="global"):
-        record["captures"].append((threading.current_thread().name, pool,
-                                   capture_error_mode))
-        with _Tape(g.ops):
-            yield
-        if record["fail"]:
-            raise RuntimeError(record["fail"])
-
-    stream = FakeStream()
-    monkeypatch.setattr(compiled, "_SIDE_STREAMS", {})
-    for name, value in {
-            "CUDAGraph": FakeGraph, "graph": graph,
-            "graph_pool_handle": lambda: "pool", "Stream": lambda d=None:
-            stream, "current_stream": lambda d=None: stream,
-            "stream": lambda s: contextlib.nullcontext(),
-            "device": lambda d: contextlib.nullcontext(),
-            "synchronize": lambda d=None: None, "Event": FakeEvent,
-            "get_device_name": lambda d=None: "stand-in card",
-            "max_memory_allocated": lambda d=None: 3 * 2 ** 20,
-            "reset_peak_memory_stats": lambda d=None: None}.items():
-        monkeypatch.setattr(torch.cuda, name, value)
-    return record
+    return standins.install(monkeypatch)
 
 
 def _restore_counts(monkeypatch):

@@ -343,6 +343,12 @@ def test_committed_tp_scaling():
     assert [r["dp"] for r in report["dp_scaling"]] == [1, 2, 4]
     assert {(r["tp"], r["mode"]) for r in report["tp_modes"]} == {
         (tp, m) for tp in (2, 4) for m in tsr.MODES}
-    assert all(r["equal_single_slot"] for r in report["tp_modes"])
+    assert all(r["equal_single_slot"] and r["bit_exact_vs_gather"]
+               for r in report["tp_modes"])
     for r in report["dp_scaling"] + report["tp_modes"]:
-        assert r["ms"] > 0 and math.isfinite(r["ms"]) and r["slots"]
+        assert (r["latency_ms"] > 0 and math.isfinite(r["latency_ms"])
+                and r["slots"] and r["compile_s"] > 0)
+    # Compiled on the card: one graph a call where every slot is one card.
+    assert all(r["case"] == "A" and r["host_steps"] == 1
+               for r in report["dp_scaling"] if "x" in r["slots"]
+               or r["dp"] == 1)
