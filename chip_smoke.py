@@ -66,8 +66,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shape; a call inside ``kernels.debug_checks()`` raises. Then the eager
    p50 of QuickNet b128, three ``benchmark_model`` readings of it (they
    must lie within 1.05x of each other in images/s, each p50 at most 1.15x
-   the device busy of one replay), and QuickNet b1 and packed AlexNet by
-   the same timer beside their eager p50.
+   one compiled QuickNet b128 call alone, timed by CUDA events), and
+   QuickNet b1 and packed AlexNet by the same timer beside their eager p50.
+   The ``[busy]`` lines read that call two ways side by side, by the
+   profiler's device time and by CUDA events, here and once more after
+   phase 6, late in the process (where the profiler read short).
 4. Time ``benchmark_model`` (images/s) for both models (BinaryAlexNet in both
    domains, QuickNet also with ``int8_pipeline=True``), print a torch.profiler breakdown of each forward's device time
    by kernel, measure the rate of the int8 and the one-bit tensor-core MMA
@@ -159,10 +162,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with a slot's share of the output channels, against its plain version;
    - ``ShardedInterpreter``, compiled (``runtime.compiled.CompiledParts``:
      case A, one graph, where every slot is one card; B, a graph per data
-     group, where each group is one card; C, segments between the copies
-     that cross cards), QuickNet 224x224 b128, meshes (2, 1), (1, 2),
-     (2, 2) (and (4, 1), (1, 4) with four cards) at float32 (top-1 128/128
-     and max |dprob| <= 1e-5 against ``Interpreter``) and bf16 (printed);
+     group, where each group is one card; C, where a group spans cards: on
+     distinct cards NCCL all-gathers and broadcasts inside one graph per
+     card, so that a call's host steps are the cards' count), QuickNet
+     224x224 b128, meshes (2, 1), (1, 2), (2, 2) (and (4, 1), (1, 4) with
+     four cards) at float32 (top-1 128/128 and max |dprob| <= 1e-5 against
+     ``Interpreter``) and bf16 (printed), each with the bytes its
+     transfers between slots move per call (the eager forward's log);
+     case C on cards under a time limit of its own, so that a replay whose
+     peers never meet fails the run;
      the segment plan on one card (``_split_at_slots``) at (1, 2) bf16;
      packed BinaryAlexNet b128 at (1, 2), top-1 128/128 against
      ``packed_apply(domain="packed")``. Each: launches per call, over three
@@ -175,8 +183,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      one host step per call on a one-card mesh. In bf16 the eager p50, the
      compiled p50 (``benchmark.time_calls``: differenced windows of 20 and
      40 calls, median of 5), images/s, the device busy of one call (the
-     profiler), one call alone (CUDA events) and ``compile_s``; on one
-     card p50 <= 1.15x that busy;
+     profiler), one call alone (CUDA events) and ``compile_s``, also in
+     float32 for case C on cards; on one card p50 <= 1.15x one call alone;
    - ``MultiHostServer`` over hosts h0 (slots 0-1) and h1 (slots 2-3), tp
      2, batch 128: 512 requests equal to the direct forward on its mesh; h1
      lost, one reshard to two slots, 128 requests top-1 128/128 against
@@ -190,7 +198,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    - the kernels' debug builds (``kernels.debug_checks()``): silent and equal
      to the default build at the main-path shapes; each of the four checks
      trips on a deliberately broken call by raising, and the default build
-     still gives its results afterwards.
+     still gives its results afterwards;
+   - the entry points of ``__graft_entry_torch__.py``: ``entry()`` (QuickNet
+     b8 zeros through the compiled ``Interpreter``, ``torch.equal`` to the
+     eager ``packed_apply``) and ``dryrun_multichip(n)`` for 2 slots (and
+     4 where four cards are visible: case C at (2, 2) over NCCL), under the
+     time limit of case C.
 
 8. The repo's tools (``--tools-only`` builds and runs this phase alone):
    - ``examples.e2e_smoke``: ``quantize`` -> ``bconv2d`` with "reference",
@@ -216,6 +229,9 @@ Exits non-zero without a CUDA device, or outside a checkout of the repo.
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
+import gc
 import json
 import os
 import shutil
@@ -1192,7 +1208,11 @@ def kernel_phase(dev, card, spec, layers, x, x_dev, plain_probs, alex,
 # Phase 3(b): the compiled forward. Gates of the benchmark's readings.
 COMPILED_BENCH_RUNS = 3  # benchmark_model calls on QuickNet b128, one process
 COMPILED_SPREAD_LIMIT = 1.05  # max / min of their images/s
-COMPILED_BUSY_LIMIT = 1.15  # their p50 over the device busy of one replay
+# Their p50 over one compiled call alone, timed by CUDA events: late in
+# the default run's process the profiler read a call about 15% short while
+# the CUDA events held (the ``[busy]`` lines), so the gates read the
+# events.
+COMPILED_BUSY_LIMIT = 1.15
 
 
 def eager_p50_ms(forward, iters=20, repeats=5):
@@ -1220,10 +1240,9 @@ def eager_p50_ms(forward, iters=20, repeats=5):
 
 def one_call_ms(call, repeats=5):
     """The card's time for one ``call()`` issued to an idle card: CUDA
-    events around it on the current stream, the median of ``repeats``. It
-    holds the host's issuing too where a call issues several steps, so it
-    is no bound on the busy time; printed beside the profiler's reading,
-    it shows which of the two moved when the busy gate fails."""
+    events around it on the current stream, the median of ``repeats``: the
+    denominator of the busy gates. Where a call issues several steps it
+    holds the host's issuing too."""
     import numpy as np
     import torch
 
@@ -1238,6 +1257,33 @@ def one_call_ms(call, repeats=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def busy_readings(dev, card, spec, layers, label):
+    """The denominator of the busy gates read two ways side by side, at one
+    point of the process: a compiled QuickNet b128 bf16 ``Interpreter``
+    call's device time by the profiler (three traces) and the same call
+    alone by CUDA events (three readings, each the median of five).
+    Returns the median of the CUDA-event readings."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.runtime import Interpreter
+    from compute_engine_tpu_torch.runtime.benchmark import device_busy_ms
+
+    interp = Interpreter(spec, layers, device=dev)
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        0, 1, (128, *spec.input_size, 3)).astype(np.float32)).to(dev)
+    x_in = interp.input_buffer(tuple(x.shape), x.dtype).copy_(x)
+    interp(x_in)
+    busy = [device_busy_ms(lambda: interp(x_in)) for _ in range(3)]
+    alone = [one_call_ms(lambda: interp(x_in)) for _ in range(3)]
+    print(f"[busy] {label}: QuickNet b128 bf16 compiled Interpreter, device "
+          f"busy of one call by the profiler "
+          f"{[None if b is None else round(b, 4) for b in busy]} ms; one call "
+          f"alone by CUDA events {[round(a, 4) for a in alone]} ms [{card}]",
+          flush=True)
+    return float(np.median(alone))
 
 
 def compiled_phase(dev, card, spec, layers, alex, alex_layers, spec8,
@@ -1384,8 +1430,8 @@ def compiled_phase(dev, card, spec, layers, alex, alex_layers, spec8,
     del qn
     runs = []
     for i in range(COMPILED_BENCH_RUNS):
-        b = benchmark_model("quicknet", batch=128, iters=20, repeats=5,
-                            device=dev, device_busy=True)
+        b = benchmark_model("quicknet", batch=128, iters=20, warmup=3,
+                            repeats=5, device=dev, device_busy=True)
         runs.append(b)
         print(f"[compiled] benchmark_model quicknet b128 bf16, run {i + 1}: "
               f"p50 {b['latency_ms_p50']:.4f} ms, {b['images_per_sec']:.1f} "
@@ -1396,13 +1442,13 @@ def compiled_phase(dev, card, spec, layers, alex, alex_layers, spec8,
     check(max(rates) / min(rates) <= COMPILED_SPREAD_LIMIT,
           f"benchmark_model's images/s spread {max(rates) / min(rates):.4f}"
           f" > {COMPILED_SPREAD_LIMIT}: {rates}")
+    alone = busy_readings(dev, card, spec, layers, "after phases 1-3")
     for b in runs:
-        check(b["device_busy_ms"] is not None, "the profiler saw no device "
-              "time in a replay")
-        check(b["latency_ms_p50"] <= COMPILED_BUSY_LIMIT * b["device_busy_ms"],
+        check(b["latency_ms_p50"] <= COMPILED_BUSY_LIMIT * alone,
               f"compiled p50 {b['latency_ms_p50']:.4f} ms > "
-              f"{COMPILED_BUSY_LIMIT} x device busy "
-              f"{b['device_busy_ms']:.4f} ms")
+              f"{COMPILED_BUSY_LIMIT} x one call alone {alone:.4f} ms (CUDA "
+              f"events; the profiler's device busy "
+              f"{ms_text(b['device_busy_ms'])})")
     # The other compiled paths, by benchmark_model's timer.
     for label, forward, x in (
             ("quicknet b1 bf16",
@@ -1551,6 +1597,27 @@ MULTI_PROB_TOL = 1e-5
 MULTI_BATCH = 128
 
 
+CASE_C_LIMIT_S = 300  # one run of case C on cards; a hang fails the run
+
+
+class watchdog:
+    """Inside the block the process dumps every thread's stack and exits
+    (code 1) once ``seconds`` pass: an NCCL replay whose peers never replay
+    waits on the card for ever, and no exception reaches Python."""
+
+    def __init__(self, seconds, what):
+        self.seconds, self.what = seconds, what
+
+    def __enter__(self):
+        print(f"[multi] {self.what}: at most {self.seconds} s", flush=True)
+        faulthandler.dump_traceback_later(self.seconds, exit=True)
+        return self
+
+    def __exit__(self, *exc):
+        faulthandler.cancel_dump_traceback_later()
+        return False
+
+
 def multi_block_shards():
     """(images, slots) of the block kernel's launches on every mesh phase 7
     may run: a data group's share of the batch, and the model slots that
@@ -1642,6 +1709,7 @@ def multi_device_phase(dev, card, tmp):
                                                  init_model, packed_apply)
     from compute_engine_tpu_torch.ops import bconv2d
     from compute_engine_tpu_torch.parallel import make_mesh, tp_bconv2d
+    from compute_engine_tpu_torch.parallel.collective import NcclLinks
     from compute_engine_tpu_torch.parallel.partition import sharded_apply
     from compute_engine_tpu_torch.runtime import Interpreter
     from compute_engine_tpu_torch.runtime.benchmark import time_calls
@@ -1777,7 +1845,7 @@ def multi_device_phase(dev, card, tmp):
     xa2 = torch.from_numpy(np.random.default_rng(11).normal(
         0, 1, (batch, *alex.input_size, 3)).astype(np.float32)).to(dev)
     ref_a = packed_apply(alex, alayers, xa, domain="packed", device=dev)
-    for shape, dt, split, model in runs:
+    def sharded_run(shape, dt, split, model, on_cards):
         n = shape[0] * shape[1]
         # The segment plan runs on one card, where (C) is otherwise never
         # reached.
@@ -1815,6 +1883,10 @@ def multi_device_phase(dev, card, tmp):
         check(not one_card or split or (plan["case"], steps) == ("A", 1),
               f"{label}: case {plan['case']}, {steps} host steps per call on "
               "one card (expected case A, 1)")
+        check(not on_cards or (plan["case"], graphs, steps) == ("C", n, n),
+              f"{label}: case {plan['case']}, {graphs} graphs and {steps} "
+              f"host steps per call on {n} cards (expected C, one graph and "
+              "one host step per card)")
         probs = probs.to(dev)
         check(tuple(probs.shape) == (batch, want_ref.shape[-1]) and bool(
             torch.isfinite(probs).all()), f"{label}: output")
@@ -1888,7 +1960,20 @@ def multi_device_phase(dev, card, tmp):
                    if model == "quicknet" else "")
                 + f"; top-1 {agree}/{batch} against the single-device "
                 f"forward, max |dprob| {dprob:.3g}")
-        if dt == torch.bfloat16:
+        # The bytes the transfers between slots move in one call: the
+        # eager forward of each group through its own links, logged.
+        log, per = [], batch // shape[0]
+        for d, g in enumerate(interp._groups):
+            interp._group_forward(g, xs[0][d * per:(d + 1) * per].to(g.home),
+                                  log=log)
+        torch.cuda.synchronize()
+        moved = {kind: sum(r["bytes"] for r in log if r["kind"] == kind)
+                 for kind in ("all_gather", "broadcast")}
+        text += (f"; between slots per call ("
+                 f"{'NCCL' if interp.links else 'copies'}): all_gather "
+                 f"{moved['all_gather']} bytes, broadcast "
+                 f"{moved['broadcast']} bytes")
+        if dt == torch.bfloat16 or on_cards:
             eager_ms = eager_p50_ms(lambda: eager(xs[0]))
             buf = interp.input_buffer(*key)
             x_in = xs[0] if buf is None else buf.copy_(xs[0])
@@ -1901,25 +1986,38 @@ def multi_device_phase(dev, card, tmp):
                      f"device busy of one call {ms_text(busy)} (profiler), "
                      f"one call alone {alone:.4f} ms (CUDA events)")
             if one_card:
-                check(busy is not None and p50 <= COMPILED_BUSY_LIMIT * busy,
+                check(p50 <= COMPILED_BUSY_LIMIT * alone,
                       f"{label}: compiled p50 {p50:.4f} ms > "
-                      f"{COMPILED_BUSY_LIMIT} x device busy {busy} (one call "
-                      f"alone {alone:.4f} ms by CUDA events)")
+                      f"{COMPILED_BUSY_LIMIT} x one call alone {alone:.4f} ms "
+                      f"by CUDA events (the profiler's device busy "
+                      f"{ms_text(busy)})")
         print(f"{text} [{card}]", flush=True)
-        del interp
+
+    for shape, dt, split, model in runs:
+        n = shape[0] * shape[1]
+        on_cards = (not split and shape[1] > 1
+                    and len({d.index for d in mesh_devices(n)[0]}) == n)
+        guard = (watchdog(CASE_C_LIMIT_S, f"case C on {n} cards, {shape} "
+                          f"{str(dt)[6:]}") if on_cards
+                 else contextlib.nullcontext())
+        with guard:
+            sharded_run(shape, dt, split, model, on_cards)
     torch.cuda.empty_cache()
     print(f"[multi] peak_hbm_mb after (b): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 20:.1f} [{card}]",
           flush=True)
 
-    # (c) MultiHostServer over two hosts of two slots, batch 128, float32.
+    # (c) MultiHostServer over two hosts of two slots, batch 128, float32
+    # (case C over NCCL on four cards).
     devices, where = mesh_devices(4)
     hosts = {"h0": devices[:2], "h1": devices[2:]}
     more = mrng.normal(0, 1, (3 * batch, *spec.input_size, 3)).astype(
         np.float32)
     requests = np.concatenate([xq, more])
     t0 = time.perf_counter()
-    with MultiHostServer(spec, layers, host_devices=hosts, tp=2,
+    with (watchdog(CASE_C_LIMIT_S, "MultiHostServer on four cards")
+          if len(set(devices)) > 1 else contextlib.nullcontext()), \
+            MultiHostServer(spec, layers, host_devices=hosts, tp=2,
                          batch_size=batch, max_delay_ms=2000,
                          heartbeat_timeout_s=3600,
                          compute_dtype=torch.float32) as server:
@@ -1970,6 +2068,7 @@ def multi_device_phase(dev, card, tmp):
               f"allocated on the (2, 2) mesh after two reshards, "
               f"{first_mb:.1f} before them")
         stats = server.engine.stats
+    del server  # its interpreter and communicators go with it
     print(f"[multi] MultiHostServer on {where} (h0: slots 0-1, h1: slots "
           f"2-3, tp 2, float32, batch {batch}): {len(requests)} requests "
           f"equal to the direct forward on the (2, 2) mesh; h1 lost -> 1 "
@@ -2090,9 +2189,61 @@ def multi_device_phase(dev, card, tmp):
           f"purpose, each raised: {trips}; default-build calls after them "
           f"still give their results; {time.perf_counter() - t0:.2f} s",
           flush=True)
-    print(f"[multi] phase 7: {time.perf_counter() - t_phase:.2f} s",
-          flush=True)
+    # (f) The entry points of __graft_entry_torch__.py.
+    paths.update(graft_entry_phase(dev, cards))
+    # The servers' interpreters (a server and its monitor refer to each
+    # other) release their NCCL communicators here, not at exit.
+    with watchdog(60, "releasing the NCCL communicators"):
+        gc.collect()
+    live = [o for o in gc.get_objects()
+            if isinstance(o, NcclLinks) and not o.closed]
+    check(not live, f"{len(live)} NCCL communicator set(s) not released "
+          "after phase 7")
+    print(f"[multi] phase 7: {time.perf_counter() - t_phase:.2f} s; every "
+          "NCCL communicator set released", flush=True)
     return paths
+
+
+def graft_entry_phase(dev, cards):
+    """Phase 7(f): ``entry()`` through the compiled ``Interpreter`` against
+    the eager ``packed_apply``, and ``dryrun_multichip`` on 2 slots and, with
+    four cards, on 4 (case C at (2, 2) over NCCL), under the time limit of
+    case C. Returns the launches of ``entry()``'s forward."""
+    import torch
+
+    import __graft_entry_torch__ as graft
+    from compute_engine_tpu_torch.models import packed_apply
+
+    t0 = time.perf_counter()
+    fn, (x,) = graft.entry()
+    reset_launches()
+    got = fn(x)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    want = packed_apply(fn.spec, fn.layers, x, device=dev)
+    exp = expected_launches("quicknet", 8)
+    check(tuple(got.shape) == (8, 1000) and bool(torch.isfinite(got).all())
+          and torch.equal(got, want), "entry(): the compiled forward of "
+          "the zeros batch is not finite (8, 1000) probabilities equal to "
+          "the eager packed_apply")
+    check(launched == exp, f"entry(): launches {launched}, "
+          f"expected_launches says {exp}")
+    print(f"[graft] entry(): QuickNet b8 zeros through the compiled "
+          f"Interpreter, (8, 1000) finite, {TOLERANCE} equal to the eager "
+          f"packed_apply; (block, bgemm, split-K) {launched}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del fn, got, want
+    for n in (2, 4) if cards >= 4 else (2,):
+        t0 = time.perf_counter()
+        with watchdog(CASE_C_LIMIT_S, f"dryrun_multichip({n})"):
+            r = graft.dryrun_multichip(n)
+        print(f"[graft] dryrun_multichip({n}) on {r['slots']}: mesh "
+              f"{r['mesh']}, case {r['case']}, plan {r['plan']}; output "
+              f"{tuple(r['out'].shape)} finite; tp_bconv2d gather == sharded "
+              f"== pipelined at {r['tp_modes']}; {r['reshards']} reshard(s) "
+              f"and answered after; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    return {"entry() quicknet b8 compiled": launched}
 
 
 # Phase 8: the baseline configurations the tools phase times (BASELINE.md's
@@ -2330,7 +2481,11 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         return 0
     if "--multi-only" in args:
         print(json.dumps({"launches_by_path": multi_device_phase(dev, card,
-                                                                 tmp)}))
+                                                                 tmp)}),
+              flush=True)
+        # Leaving the process must not wait on a card for ever: dump the
+        # stacks and exit 1 if it takes two minutes.
+        faulthandler.dump_traceback_later(120, exit=True)
         return 0
     if "--compiled-only" in args:
         spec = get_model("quicknet")
@@ -2754,6 +2909,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
                  xa, plain_a, artifact)
     _, trained = training_phase(dev, card)
     float32_phase(dev, card, bench)
+    busy_readings(dev, card, spec, layers, "after phase 6")
 
     # 7. The multi-device path, in a process of its own (``--multi-only``).
     # Late in this process the profiler reads a forward's device time short

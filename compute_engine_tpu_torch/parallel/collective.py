@@ -26,9 +26,20 @@ local copy. JAX's shard_map proves the layout in its compiled program (an
 HLO check); here every copy between slots is recorded in ``log``, a list
 the caller passes (``record``: one schema for this module and
 ``parallel.partition``).
+
+The sharded forward of a data group whose slots lie on distinct cards
+joins them by NCCL instead (``NcclLinks``): one communicator per card, made
+from this process at once (``ncclCommInitAll``), and the all-gather and
+broadcast issued on every card's current stream in one NCCL group, so that
+a CUDA graph captured on each card holds its own NCCL kernels
+(``runtime.compiled.capture_per_card``).
 """
 
 from __future__ import annotations
+
+import ctypes
+import sys
+import threading
 
 import numpy as np
 import torch
@@ -37,9 +48,11 @@ from ..core.params import BConv2DParams
 from ..core.transforms import OutputTransform
 from ..kernels.bgemm import bgemm
 from ..ops import bconv2d
+from ..runtime.compiled import slot_copy
 from .sharding import NamedSharding, ShardedTensor, device_put
 
-__all__ = ["tp_bconv2d", "record", "to_slot", "all_gather"]
+__all__ = ["tp_bconv2d", "record", "to_slot", "all_gather", "NcclLinks",
+           "NCCL_MIN_VERSION"]
 
 
 def tp_bconv2d(packed_input, packed_filter, transform: OutputTransform,
@@ -224,24 +237,24 @@ def record(log, kind, tensors, src, dst, mesh):
                     "local": mesh.devices[src] == mesh.devices[dst]})
 
 
-def to_slot(t, src, dst, mesh, log=None, kind="broadcast", move=None):
+def to_slot(t, src, dst, mesh, log=None, kind="broadcast"):
     """``t``, held by slot ``src``, on slot ``dst``'s device: recorded as
     ``kind`` unless the two slots are one. PyTorch orders the copy against
     both devices' current streams; between slots of one device the tensor
-    is used where it lies. ``move(t, device)``, when given, makes every copy
-    between two slots in place of ``Tensor.to`` (the compiled sharded
-    forward ends a segment there)."""
-    if src != dst:
-        record(log, kind, [t], src, dst, mesh)
-        if move is not None:
-            return move(t, mesh.devices[dst])
-    return t.to(mesh.devices[dst], non_blocking=True)
+    is used where it lies. A capture pass that splits at slots ends a
+    segment at every copy between two slots (``runtime.compiled.
+    slot_copy``)."""
+    out = t.to(mesh.devices[dst], non_blocking=True)
+    if src == dst:
+        return out
+    record(log, kind, [t], src, dst, mesh)
+    return slot_copy(out)
 
 
-def all_gather(pieces, srcs, dst, mesh, log=None, dim=-1, move=None):
+def all_gather(pieces, srcs, dst, mesh, log=None, dim=-1):
     """The ``pieces`` that slots ``srcs`` hold, concatenated along ``dim``
     on slot ``dst``: one "all_gather" record per piece from another slot."""
-    return torch.cat([to_slot(p, s, dst, mesh, log, "all_gather", move)
+    return torch.cat([to_slot(p, s, dst, mesh, log, "all_gather")
                       for p, s in zip(pieces, srcs)], dim=dim)
 
 
@@ -289,3 +302,163 @@ def _receive(copies, event, dev):
         for t in copies:
             t.record_stream(stream)
     return tuple(copies)
+
+
+# -- NCCL between the slots of one group, from this one process ---------------
+
+NCCL_MIN_VERSION = (2, 9)  # CUDA graph capture of NCCL collectives
+_NCCL_UINT8 = 1  # ncclUint8: every collective here moves bytes
+
+
+class _Nccl:
+    """The NCCL library that PyTorch loaded, called through ctypes on
+    tensors: PyTorch's own ``torch.cuda.nccl`` makes a communicator per rank
+    only through ``init_rank``, which fails under Python 3.12
+    ("PY_SSIZE_T_CLEAN macro must be defined"), and its communicators made
+    at the first collective live as long as the process."""
+
+    def __init__(self):
+        lib = ctypes.CDLL("libnccl.so.2")  # PyTorch has loaded it
+        ptr = ctypes.c_void_p
+        lib.ncclGetErrorString.restype = ctypes.c_char_p
+        lib.ncclCommInitAll.argtypes = [ctypes.POINTER(ptr), ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
+        lib.ncclAllGather.argtypes = [ptr, ptr, ctypes.c_size_t,
+                                      ctypes.c_int, ptr, ptr]
+        lib.ncclBroadcast.argtypes = [ptr, ptr, ctypes.c_size_t,
+                                      ctypes.c_int, ctypes.c_int, ptr, ptr]
+        lib.ncclCommAbort.argtypes = [ptr]
+        self.lib = lib
+
+    def _check(self, result):
+        if result != 0:
+            text = self.lib.ncclGetErrorString(result).decode()
+            raise RuntimeError(f"NCCL error {result}: {text}")
+
+    def version(self):
+        v = ctypes.c_int()
+        self._check(self.lib.ncclGetVersion(ctypes.byref(v)))
+        code = v.value  # major * 10000 + minor * 100 + patch since 2.9
+        return code // 10000, code // 100 % 100, code % 100
+
+    def init_all(self, devices):
+        """One communicator per card of ``devices`` (distinct), rank i on
+        ``devices[i]``."""
+        n = len(devices)
+        comms = (ctypes.c_void_p * n)()
+        ids = (ctypes.c_int * n)(*[d.index for d in devices])
+        self._check(self.lib.ncclCommInitAll(comms, n, ids))
+        return list(comms)
+
+    def release(self, comms):
+        """Free ``comms`` once their cards have finished their work:
+        ``ncclCommAbort``, which each communicator completes on its own
+        (``ncclCommDestroy`` of the communicators of one
+        ``ncclCommInitAll``, one after the other from one thread, waits for
+        the others' and hangs)."""
+        for c in comms:
+            self._check(self.lib.ncclCommAbort(c))
+
+    def _group(self, calls):
+        self._check(self.lib.ncclGroupStart())
+        try:
+            for call in calls:
+                self._check(call())
+        finally:
+            self._check(self.lib.ncclGroupEnd())
+
+    def all_gather(self, inputs, outputs, comms):
+        """Rank i's ``inputs[i]`` into every ``outputs[j]`` at offset i
+        (NCCL's flat rank order), on each card's current stream."""
+        self._group([
+            lambda i=i, o=o, c=c: self.lib.ncclAllGather(
+                i.data_ptr(), o.data_ptr(), i.numel() * i.element_size(),
+                _NCCL_UINT8, c, _stream(i))
+            for i, o, c in zip(inputs, outputs, comms)])
+
+    def broadcast(self, tensors, comms, root=0):
+        """``tensors[root]`` into every other one, in place, on each card's
+        current stream."""
+        self._group([
+            lambda t=t, c=c: self.lib.ncclBroadcast(
+                t.data_ptr(), t.data_ptr(), t.numel() * t.element_size(),
+                _NCCL_UINT8, root, c, _stream(t))
+            for t, c in zip(tensors, comms)])
+
+
+def _stream(t):
+    """The current stream of ``t``'s card, as NCCL takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_NCCL = []
+_NCCL_LOCK = threading.Lock()
+
+
+def _nccl():
+    with _NCCL_LOCK:
+        if not _NCCL:
+            _NCCL.append(_Nccl())
+        return _NCCL[0]
+
+
+class NcclLinks:
+    """NCCL communicators joining the slots of one data group, each slot on
+    a distinct card (``devices``, in slot order), made at once and released
+    with the object (``close``, or when it goes).
+
+    ``all_gather(pieces)``: slot j's ``pieces[j]`` (..., c), gathered along
+    the last axis on every slot; returns the whole (..., j * c) tensor on
+    each slot, in slot order. NCCL writes the pieces in rank order, one
+    after the other, so each slot's (tp, ..., c) buffer is reordered by one
+    copy, the bytes a ``torch.cat`` moves. ``broadcast(t)``: ``t``, on the
+    first slot, on every slot (``t`` itself on the first). Both are issued
+    on each card's current stream: captured, on the capturing one.
+    """
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        if len(set(self.devices)) != len(self.devices):
+            raise ValueError(f"NCCL joins distinct cards, one rank each; got "
+                             f"{[str(d) for d in self.devices]}")
+        self._lib = _nccl()
+        version = self._lib.version()
+        if version < NCCL_MIN_VERSION:
+            raise RuntimeError(f"NCCL {version} cannot be captured into a "
+                               f"CUDA graph; {NCCL_MIN_VERSION} or later can")
+        self._comms = self._lib.init_all(self.devices)
+
+    def close(self):
+        """Release the communicators, after every card's queued work (no
+        replay may use them after)."""
+        comms, self._comms = self._comms, []
+        if comms:
+            for d in self.devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            self._lib.release(comms)
+
+    def __del__(self):
+        # At interpreter exit the process takes the communicators with it:
+        # a CUDA call then may never return.
+        if getattr(self, "_comms", None) and not sys.is_finalizing():
+            self.close()
+
+    @property
+    def closed(self):
+        return not self._comms
+
+    def all_gather(self, pieces):
+        pieces = [p.contiguous() for p in pieces]
+        shape = pieces[0].shape
+        flat = [torch.empty((len(pieces), *shape), dtype=p.dtype,
+                            device=p.device) for p in pieces]
+        self._lib.all_gather(pieces, flat, self._comms)
+        return [f.movedim(0, -2).reshape(*shape[:-1], -1) for f in flat]
+
+    def broadcast(self, t):
+        t = t.contiguous()
+        bufs = [t] + [torch.empty(t.shape, dtype=t.dtype, device=d)
+                      for d in self.devices[1:]]
+        self._lib.broadcast(bufs, self._comms)
+        return bufs

@@ -34,11 +34,19 @@ home slot assembles a sharded array whole only when a layer reads it to run
 replicated (``_HomeLayer``), so a layer that runs sharded never costs the
 home slot its whole weights.
 
-Every copy between slots is recorded in ``log`` when one is passed, by
-``collective.record``: "broadcast" (an activation to a model slot),
-"all_gather" (a slice to the home slot); ``move``, when passed, makes each
-of them (the compiled sharded forward, ``runtime.compiled``, ends a segment
-there under ``ShardedInterpreter(_split_at_slots=True)``).
+How the slots exchange activations: by default a gather is a copy of each
+slot's slice onto the home slot and a ``torch.cat`` there, and a broadcast
+a copy from the home slot (``collective.to_slot``, ``all_gather``). Where a
+group's slots lie on distinct cards, ``links`` (``collective.NcclLinks``)
+joins them by NCCL instead, as GSPMD's program all-gathers on the device:
+the all-gather leaves the whole activation on every slot, so a sharded
+layer that follows reads it where it lies and no broadcast follows a
+gather; what a replicated layer makes on the home slot reaches the model
+slots by one NCCL broadcast. Every slot's copy is the same bytes, so the
+forward is bit for bit the copies' forward. Every transfer between slots
+is recorded in ``log`` when one is passed, by ``collective.record``:
+"broadcast" (an activation to a model slot), "all_gather" (a slice to
+another slot: to the home slot by copies, to every slot by NCCL).
 
 The forward of one data group (``group_apply``) is the unit that the
 compiled sharded forward captures; ``sharded_apply`` is the loop over the
@@ -60,7 +68,7 @@ from ..kernels.bgemm import bgemm
 from ..kernels.residual import binary_residual_block
 from ..models.builder import (Int8Tensor, PackedBuilder, _BinaryStream,
                               _DeferredBConv)
-from .collective import all_gather, to_slot
+from .collective import all_gather, record, to_slot
 from .sharding import ShardedTensor
 
 __all__ = ["sharded_apply", "group_apply", "partition_layers",
@@ -174,13 +182,17 @@ def partition_layers(sharded_layers, mesh):
 class ShardedBuilder(PackedBuilder):
     """``PackedBuilder`` of one data group: replicated layers run on the
     home slot, sharded layers on every model slot (a ``PackedBuilder`` each,
-    over the slot's arrays), gathered on the home slot."""
+    over the slot's arrays), gathered on the home slot, by copies or by
+    ``links`` (see the module docstring)."""
 
-    def __init__(self, group: _Group, log=None, move=None, **kw):
+    def __init__(self, group: _Group, log=None, links=None, **kw):
         super().__init__(group.layers, **kw)
         self.group = group
         self.log = log
-        self.move = move
+        self.links = links
+        # The last activation that every slot holds: (the home slot's
+        # tensor, each slot's copy), from an all-gather or a broadcast.
+        self._replicas = None
         self.slots = [PackedBuilder(layers, **kw)
                       for layers in group.slot_layers]
 
@@ -193,14 +205,37 @@ class ShardedBuilder(PackedBuilder):
     def _broadcast(self, t, j):
         """The replicated activation ``t`` on model slot ``j``."""
         g = self.group
-        return to_slot(t, g.coords[0], g.coords[j], g.mesh, self.log,
-                       move=self.move)
+        if self.links is None:
+            return to_slot(t, g.coords[0], g.coords[j], g.mesh, self.log)
+        if j == 0:
+            return t
+        if self._replicas is None or self._replicas[0] is not t:
+            for c in g.coords[1:]:
+                record(self.log, "broadcast", [t], g.coords[0], c, g.mesh)
+            self._replicas = (t, self.links.broadcast(t))
+        return self._replicas[1][j]
 
     def _gather(self, pieces):
-        """The slots' channel slices, concatenated on the home slot."""
+        """The slots' channel slices, concatenated on the home slot (by
+        ``links`` on every slot, kept for the next broadcast)."""
         g = self.group
-        return all_gather(pieces, g.coords, g.coords[0], g.mesh, self.log,
-                          move=self.move)
+        if self.links is None:
+            return all_gather(pieces, g.coords, g.coords[0], g.mesh, self.log)
+        for src, p in zip(g.coords, pieces):
+            for dst in g.coords:
+                if dst != src:
+                    record(self.log, "all_gather", [p], src, dst, g.mesh)
+        full = self.links.all_gather(pieces)
+        self._replicas = (full[0], full)
+        return full[0]
+
+    def _channel_slice(self, xf, j):
+        """Slot ``j``'s slice of the replicated activation's channels."""
+        per = xf.shape[-1] // self.tp
+        if self.links is None:
+            return self._broadcast(
+                xf[..., j * per:(j + 1) * per].contiguous(), j)
+        return self._broadcast(xf, j)[..., j * per:(j + 1) * per].contiguous()
 
     def _slot_input(self, x, j):
         """A binary layer's input on slot ``j``: a packed stream stays lazy
@@ -232,11 +267,9 @@ class ShardedBuilder(PackedBuilder):
         if not self.group.sharded[name] or isinstance(x, Int8Tensor):
             return super().depthwise_conv_bn(x, ksize, name=name, **kw)
         xf = self._f(x)
-        per = xf.shape[-1] // self.tp
         return self._gather([
-            sb.depthwise_conv_bn(
-                self._broadcast(xf[..., j * per:(j + 1) * per].contiguous(),
-                                j), ksize, name=name, **kw)
+            sb.depthwise_conv_bn(self._channel_slice(xf, j), ksize, name=name,
+                                 **kw)
             for j, sb in enumerate(self.slots)])
 
     def dense(self, x, units, *, name, **kw):
@@ -319,14 +352,15 @@ def _scope(compute_dtype):
 
 def group_apply(spec, group, x, kernel="auto", compute_dtype=torch.bfloat16,
                 residual_block=binary_residual_block, gemm=bgemm,
-                domain="float", log=None, move=None):
+                domain="float", log=None, links=None):
     """The forward of one data ``group`` (``partition_layers``) on ``x``,
     its share of the batch on the group's home slot; returns the output
-    there. ``move`` makes the copies between slots (``to_slot``); the other
-    arguments are ``sharded_apply``'s."""
+    there. ``links`` (``collective.NcclLinks`` over the group's cards)
+    joins the slots in place of copies; the other arguments are
+    ``sharded_apply``'s."""
     with _scope(compute_dtype):
         builder = ShardedBuilder(
-            group, log=log, move=move, kernel=kernel,
+            group, log=log, links=links, kernel=kernel,
             compute_dtype=compute_dtype, residual_block=residual_block,
             gemm=gemm, domain=domain)
         return _final(spec.forward(builder, x))

@@ -14,8 +14,13 @@ same input. There is no CPU mode: without a card it raises.
 
 Usage:
   python -m compute_engine_tpu_torch.runtime.benchmark --model quicknet \\
-      --batch 128 [--iters 20] [--repeats 5] [--kernel auto] \\
-      [--artifact q.npz] [--input-size 224] [--f32] [--domain packed] [--int8]
+      [--batch 8] [--iters 20] [--warmup 3] [--repeats 5] [--kernel auto] \\
+      [--artifact q.npz] [--input-size 224] [--f32] [--domain packed] \\
+      [--int8] [--json]
+
+It prints JAX's key/value table, or with ``--json`` one JSON line. The
+defaults are JAX's: ``benchmark_model()`` times batch 8 after one warm-up
+forward, the command line batch 8 after three.
 """
 
 from __future__ import annotations
@@ -30,10 +35,9 @@ import torch
 from ..converter import load_artifact
 from ..device import resolve_device
 from ..interop import layers_from_numpy
-from ..kernels import counts
 from ..models import (KERNELS, calibrate_model, convert_model, get_model,
                       init_model, packed_apply, prepare_runtime_arrays)
-from .compiled import capture, warm_up
+from .compiled import capture_plan, warm_up_plan
 from .interpreter import artifact_model
 
 __all__ = ["benchmark_model", "prepare_forward", "time_forward",
@@ -80,7 +84,7 @@ def activation_peak_bytes(forward):
     return best[0]
 
 
-def prepare_forward(model=None, batch=128, seed=0, kernel="auto",
+def prepare_forward(model=None, batch=8, seed=0, kernel="auto",
                     artifact_path=None, compute_dtype=torch.bfloat16,
                     input_size=None, device="cuda", domain="float",
                     int8_pipeline=False):
@@ -88,14 +92,12 @@ def prepare_forward(model=None, batch=128, seed=0, kernel="auto",
     returns ``(spec, layers, x, forward)``, the runtime layers, the input
     batch (normal draws from ``seed``) and a callable that runs
     ``packed_apply`` on them (``forward(inp)`` on another input of the same
-    shape). The arguments are ``benchmark_model``'s. On a card the
-    allocator's peak is reset once the weights are made, before they are
-    copied there."""
+    shape). The arguments are ``benchmark_model``'s: an artifact is timed
+    as it was converted, and ``int8_pipeline`` is ignored there, as JAX
+    ignores it. On a card the allocator's peak is reset once the weights
+    are made, before they are copied there."""
     device = resolve_device(device)
     if artifact_path is not None:
-        if int8_pipeline:
-            raise ValueError("int8_pipeline converts random weights; an "
-                             "artifact is timed as it was converted")
         name, config, layers_np = load_artifact(artifact_path)
         if model is None:
             spec = artifact_model(name, config)
@@ -184,12 +186,13 @@ def _iterated(forward, n):
 
 def _replayer(fn, x, pool):
     """A callable that replays ``fn(x)`` captured into a graph of ``pool``
-    and adds the graph's launches to the kernels' counts."""
-    graph, _, ledger = capture(fn, x, pool)
+    on ``x``'s device and adds the graph's launches to the kernels'
+    counts."""
+    steps, _ = capture_plan(fn, x, [x.device], {x.device: pool})
 
     def replay():
-        graph.replay()
-        counts.add(ledger)
+        for step in steps:
+            step.run()
 
     return replay
 
@@ -208,7 +211,7 @@ def time_forward(forward, x, iters=20, warmup=3, repeats=5,
     device = x.device
     pool = torch.cuda.graph_pool_handle()
     t0 = time.perf_counter()
-    warm_up(forward, x, max(warmup, 1))
+    warm_up_plan(forward, x, [device], max(warmup, 1))
     run_k = _replayer(_iterated(forward, iters), x, pool)
     run_k()
     torch.cuda.synchronize(device)
@@ -262,11 +265,11 @@ def time_calls(call, x, iters=20, repeats=5):
     return out
 
 
-def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
+def benchmark_model(model=None, batch=8, iters=20, warmup=1, repeats=5,
                     seed=0, kernel="auto", artifact_path=None,
                     compute_dtype=torch.bfloat16, input_size=None,
                     device="cuda", domain="float", int8_pipeline=False,
-                    device_busy=False):
+                    device_busy=False, binary_dtype=None):
     """Latency, images/s and memory of the compiled packed forward at
     ``batch`` on the card, timed as the module docstring says
     (``time_forward``).
@@ -282,7 +285,10 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
 
     ``int8_pipeline`` (no artifact) times the true-int8 execution mode: the
     model is calibrated on two random batches of 8 (from ``seed + 1``) and
-    converted with input and output ranges.
+    converted with input and output ranges. With an artifact it is ignored,
+    as JAX ignores it. ``binary_dtype`` is accepted and ignored: JAX's TPU
+    operand type has no meaning on the card (see ``models.PackedBuilder``).
+    The defaults are JAX's (``batch=8``, ``warmup=1``).
 
     The result has the keys of JAX's result (``compile_s``,
     ``latency_ms_p50``, ``latency_ms_mean``, ``latency_ms_min``,
@@ -298,6 +304,7 @@ def benchmark_model(model=None, batch=128, iters=20, warmup=3, repeats=5,
     device = resolve_device(device)
     if device.type != "cuda":
         raise ValueError("benchmark_model times the card; it has no CPU mode")
+    int8_pipeline = int8_pipeline and artifact_path is None
     spec, layers, x, forward = prepare_forward(
         model, batch, seed, kernel, artifact_path, compute_dtype, input_size,
         device, domain, int8_pipeline)
@@ -323,7 +330,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default=None,
                    help="zoo model (default quicknet, or the artifact's)")
-    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--batch", type=int, default=8)
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--repeats", type=int, default=5)
@@ -341,14 +348,21 @@ def main(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="true-int8 pipeline (calibrated; int8 stream, int8 "
                         "residual adds)")
+    p.add_argument("--json", action="store_true",
+                   help="one JSON line in place of the key/value table")
     args = p.parse_args(argv)
     size = (args.input_size, args.input_size) if args.input_size else None
-    print(json.dumps(benchmark_model(
+    result = benchmark_model(
         model=args.model, batch=args.batch, iters=args.iters,
         warmup=args.warmup, repeats=args.repeats, seed=args.seed,
         kernel=args.kernel, artifact_path=args.artifact, input_size=size,
         compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
-        domain=args.domain, int8_pipeline=args.int8)))
+        domain=args.domain, int8_pipeline=args.int8)
+    if args.json:
+        print(json.dumps(result))
+    else:
+        for k, v in result.items():
+            print(f"{k:18s} {v}")
 
 
 if __name__ == "__main__":

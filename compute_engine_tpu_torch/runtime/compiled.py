@@ -1,22 +1,53 @@
-"""The compiled forward: one captured CUDA graph per input shape and dtype.
+"""The compiled forward: captured CUDA graphs per input shape and dtype.
 
 The port's counterpart of ``jax.jit`` as the JAX runtime uses it: JAX's
 ``Interpreter`` jits its forward once per batch shape, with the weights as
-jit arguments. Here the first call at an input (shape, dtype) runs the
-forward eagerly a few times on a side stream (``warm_up``: the kernels are
-built or loaded, cuDNN and cuBLAS initialise, the kernels' shared-memory
-attributes are set), then captures one whole forward into a
-``torch.cuda.CUDAGraph`` (``capture``). Every call copies its input into the
-graph's static input and replays the graph: one launch for the host where
-the eager forward has 60-100.
+jit arguments, and its ``ShardedInterpreter`` jits the sharded forward over
+the mesh. Here the first call at an input (shape, dtype) runs the forward
+eagerly a few times on a side stream per card (``warm_up_plan``: the
+kernels are built or loaded, cuDNN and cuBLAS initialise, the kernels'
+shared-memory attributes are set, NCCL connects), then captures it into
+``torch.cuda.CUDAGraph`` objects. Every call copies its input into the
+static input and replays the graphs, on the calling thread without
+waiting: one launch for the host per graph, where the eager forward has
+60-100.
 
 The weights are read where they lie, by address, as jit arguments are: a
 ``copy_`` into a weight changes what the next replay computes (replacing
 the tensor in a layer dict does not). Each call returns a fresh tensor, a
-clone of the graph's output, as jit returns a fresh array.
+clone of the graphs' output, as jit returns a fresh array.
 
-Launch counts (``kernels.counts``): the capture's launches are recorded
-into a ledger, not counted, and every replay adds the ledger. The warm-up
+A call runs in parts (``CompiledParts``), each with a static input: the
+whole forward where every slot is one device, else one part per data
+group (``ShardedInterpreter``). A part is captured one of three ways:
+
+* one device: one graph (``capture_plan`` finds one segment);
+* distinct cards joined by NCCL collectives (``per_card``): one graph per
+  card, every card's capture open at once on its side stream
+  (``capture_per_card``), so that each card's graph holds its own NCCL
+  kernels; a replay of one card's graph waits in those kernels for its
+  peers, so a call replays every card's graph;
+* otherwise (a data group whose slots repeat a card, or the split plan
+  that ``split`` asks for): segments (``capture_plan``). One capture cannot
+  hold a copy between two cards (the caching allocator of the other card
+  is not in capture mode, and the copy joins the other card's stream into
+  the capture), so a segment is the run of one device's work between two
+  copies that cross devices, one graph on that device's side stream, and
+  the copies between segments run outside any graph, from one segment's
+  output into a buffer that the next one reads. Which device an operation
+  runs on, and which copies cross devices, is read off the operations
+  themselves as the capture pass runs them (``_Segmenter``, a dispatch
+  mode); ``split`` ends a segment where the forward asks for it.
+
+An NCCL collective is no operation the dispatch mode sees: it is issued on
+each card's current stream, the capturing one during a capture. The
+warm-up's plan of a ``per_card`` part must hold no copy between cards. The
+plan of a segment capture must be the plan of its warm-up. ``host_steps``
+counts the replays and copies of one call: 1 where the whole forward is one
+graph, the number of cards for a ``per_card`` part.
+
+Launch counts (``kernels.counts``): a capture's launches are recorded into
+a ledger, not counted, and every replay adds the ledger. The warm-up
 forwards are the compile step and are not counted either, so the counts
 hold the forwards the caller asked for.
 
@@ -26,26 +57,6 @@ raises (debug checks stay an eager ``packed_apply`` tool); profiler spans
 inside the forward (``utils.profiling.annotate``) are recorded once, at the
 capture, so profile by kernel name through ``packed_apply``. A failed
 capture raises; nothing falls back to the eager forward on the card.
-
-The sharded forward (``CompiledParts``, behind ``ShardedInterpreter``) runs
-on several slots, and one capture cannot hold kernels on two cards: the
-caching allocator of the other card is not in capture mode, and a copy
-between cards joins the other card's stream into the capture. So a call is
-split into parts, each with a static input (the whole forward where every
-slot is one device, else one part per data group), and each part is
-captured as segments (``capture_plan``): a segment is the run of one
-device's work between two copies that cross devices, one graph on that
-device's side stream, and the copies between segments run outside any
-graph, from one segment's output into a buffer that the next one reads.
-Which device an operation runs on, and which copies cross devices, is read
-off the operations themselves as the capture pass runs them
-(``_Segmenter``, a dispatch mode); ``split`` ends a segment where the
-forward asks for it. The replay plan of a part is its segments and copies
-in the forward's own order; a call issues every part's plan on the calling
-thread without waiting, each replay on its device's current stream and
-each copy ordered by PyTorch against both devices' current streams, so the
-cards run at once. ``host_steps`` counts the replays and copies of one
-call: 1 where the whole forward is one graph.
 """
 
 from __future__ import annotations
@@ -61,8 +72,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels import counts, debug
 
-__all__ = ["CompiledForward", "CompiledParts", "warm_up", "capture",
-           "warm_up_plan", "capture_plan", "split", "WARMUP"]
+__all__ = ["CompiledForward", "CompiledParts", "warm_up_plan",
+           "capture_plan", "capture_per_card", "split", "slot_copy", "PLANS",
+           "WARMUP"]
 
 WARMUP = 2  # eager forwards before a capture
 
@@ -80,100 +92,6 @@ def _side_stream(device):
     if stream is None:
         stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
     return stream
-
-
-def warm_up(fn, x, n):
-    """``n`` eager calls of ``fn(x)`` on the side stream of ``x``'s device,
-    their launches not counted; the device's current stream then waits for
-    them."""
-    current = torch.cuda.current_stream(x.device)
-    with _SIDE_LOCK:
-        side = _side_stream(x.device)
-        side.wait_stream(current)
-        with counts.recording(), torch.cuda.stream(side):
-            for _ in range(n):
-                fn(x)
-        current.wait_stream(side)
-
-
-def capture(fn, x, pool=None):
-    """``fn(x)`` captured into a new CUDA graph: returns the graph, the
-    output it writes and the ledger of the kernels' launches it holds. The
-    capture is thread-local (``capture_error_mode="thread_local"``), so
-    that other threads may allocate or pin memory meanwhile, and runs on the
-    side stream of ``x``'s device; ``pool`` is a memory pool to share with
-    other graphs (a private one by default)."""
-    graph = torch.cuda.CUDAGraph()
-    with _SIDE_LOCK, counts.recording(capture=True) as ledger, \
-            torch.cuda.graph(graph, pool=pool, stream=_side_stream(x.device),
-                             capture_error_mode="thread_local"):
-        out = fn(x)
-    return graph, out, ledger
-
-
-class _Graph:
-    """One key's graph: its static input and output and its launches."""
-
-    def __init__(self, static_input):
-        self.input = static_input
-        self.graph = self.output = None
-        self.ledger = {}
-
-
-class CompiledForward:
-    """Runs ``fn(x)`` on ``device`` as one CUDA graph per input (shape,
-    dtype), like a jitted function's cache of programs.
-
-    ``fn`` takes one tensor on ``device`` and returns one tensor; whatever
-    else it reads (weights) it reads in place at every replay. Each key's
-    graph has a memory pool of its own. ``x`` may lie on the host or on the
-    card; calls are serialised, and each replays on the calling thread's
-    current stream. ``compile_s`` maps each key ``(shape, dtype)`` to the
-    seconds of its first call: warm-up, capture and the first replay, to
-    its end on the card.
-    """
-
-    def __init__(self, fn, device):
-        self.fn = fn
-        self.device = torch.device(device)
-        self.compile_s = {}
-        self._graphs = {}
-        self._lock = threading.Lock()
-
-    def _entry(self, key):
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = _Graph(
-                torch.empty(key[0], dtype=key[1], device=self.device))
-        return entry
-
-    def input_buffer(self, shape, dtype):
-        """The static input of the graph at (``shape``, ``dtype``), made
-        when first asked for: a batch written into it and passed to the call
-        is not copied again."""
-        with self._lock:
-            return self._entry((tuple(shape), dtype)).input
-
-    def __call__(self, x):
-        if debug.enabled():
-            raise RuntimeError(debug.NOT_CAPTURED)
-        key = (tuple(x.shape), x.dtype)
-        with self._lock, torch.cuda.device(self.device):
-            entry = self._entry(key)
-            if x is not entry.input:
-                entry.input.copy_(x, non_blocking=True)
-            if entry.graph is None:
-                t0 = time.perf_counter()
-                warm_up(self.fn, entry.input, WARMUP)
-                entry.graph, entry.output, entry.ledger = capture(
-                    self.fn, entry.input)
-                entry.graph.replay()
-                torch.cuda.synchronize(self.device)
-                self.compile_s[key] = time.perf_counter() - t0
-            else:
-                entry.graph.replay()
-            counts.add(entry.ledger)
-            return entry.output.clone()
 
 
 # -- several graphs for one call ---------------------------------------------
@@ -226,13 +144,16 @@ class _Segmenter(TorchDispatchMode):
     schema may alias its input, as ``aten.to.dtype``, can also launch a
     kernel); a copy between two of them, or a copy that ``split`` asks for,
     closes the open segment and runs outside any graph, as a step of its
-    own. An operation that reads tensors on two of them is refused.
+    own. An operation that reads tensors on two of them is refused. With
+    ``at_slots`` every copy between two slots of a mesh (``slot_copy``)
+    ends a segment too, on one card as well.
     """
 
-    def __init__(self, devices, pools=None):
+    def __init__(self, devices, pools=None, at_slots=False):
         super().__init__()
         self.devices = frozenset(devices)
         self.pools = pools
+        self.at_slots = at_slots
         self.steps = []
         self._open = None
         self._split = False
@@ -241,6 +162,10 @@ class _Segmenter(TorchDispatchMode):
     def __enter__(self):
         self._outer = getattr(_LOCAL, "segmenter", None)
         _LOCAL.segmenter = self
+        if len(self.devices) == 1:
+            # One device: the pass is one segment from its start, so that a
+            # kernel launched before any operation is in it too.
+            self._begin(next(iter(self.devices)))
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -323,6 +248,15 @@ def split(t):
     return t if seg is None else seg.split(t)
 
 
+def slot_copy(t):
+    """``t``, just copied from one slot of a mesh to another
+    (``parallel.collective.to_slot``): through ``split`` in a pass that
+    splits at slots (a part of ``CompiledParts`` whose plan is
+    "split_at_slots"), else ``t`` itself."""
+    seg = getattr(_LOCAL, "segmenter", None)
+    return seg.split(t) if seg is not None and seg.at_slots else t
+
+
 @contextlib.contextmanager
 def _on_side_streams(devices):
     """Each card of ``devices`` runs on its side stream inside the block,
@@ -342,26 +276,26 @@ def _on_side_streams(devices):
             current[d].wait_stream(_side_stream(d))
 
 
-def warm_up_plan(fn, x, devices, n):
+def warm_up_plan(fn, x, devices, n, at_slots=False):
     """``n`` eager calls of ``fn(x)`` on the side streams of ``devices``,
     their launches not counted; returns the plan the last one went through
-    (its steps, with no graphs)."""
+    (its steps, with no graphs), split at slots with ``at_slots``."""
     with _SIDE_LOCK, counts.recording(), _on_side_streams(devices):
         for _ in range(n):
-            seg = _Segmenter(devices)
+            seg = _Segmenter(devices, at_slots=at_slots)
             with seg:
                 fn(x)
             seg.close()
     return seg.steps
 
 
-def capture_plan(fn, x, devices, pools):
-    """``fn(x)`` captured as a plan over ``devices`` (``_Segmenter``), each
-    segment's graph in the memory pool ``pools`` gives its device: returns
-    the steps and the output the last one writes. A failed capture raises,
-    and so does a kernel launched outside every segment (it would not be
-    replayed)."""
-    seg = _Segmenter(devices, pools)
+def capture_plan(fn, x, devices, pools, at_slots=False):
+    """``fn(x)`` captured as a plan over ``devices`` (``_Segmenter``, split
+    at slots with ``at_slots``), each segment's graph in the memory pool
+    ``pools`` gives its device: returns the steps and the output the last
+    one writes. A failed capture raises, and so does a kernel launched
+    outside every segment (it would not be replayed)."""
+    seg = _Segmenter(devices, pools, at_slots)
     with _SIDE_LOCK, counts.recording() as stray, _on_side_streams(devices):
         try:
             with seg:
@@ -376,11 +310,77 @@ def capture_plan(fn, x, devices, pools):
     return seg.steps, out
 
 
+def capture_per_card(fn, x, devices, pools):
+    """``fn(x)`` captured into one graph per card of ``devices``, every
+    card's capture open at once on its side stream, each graph in the
+    memory pool ``pools`` gives its card: returns the steps (one segment
+    per card, in the order of ``devices``, the launch ledger on the first)
+    and the output. Each capture begins and ends with its own card current
+    (a tensor method makes its tensor's card current). The graphs are
+    instantiated once every capture has ended: instantiating is no call a
+    thread may make while it captures. A failed capture raises, after every
+    capture has ended."""
+    segs = [_Segment(d) for d in devices]
+    opened = []
+    with _SIDE_LOCK, counts.recording(capture=True) as ledger, \
+            _on_side_streams(devices):
+        for d in devices:
+            torch.cuda.synchronize(d)
+        try:
+            for seg in segs:
+                seg.graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.device(seg.device):
+                    seg.graph.capture_begin(
+                        pools[seg.device], capture_error_mode="thread_local")
+                opened.append(seg)
+            out = fn(x)
+        except BaseException:
+            _end_captures(opened, quiet=True)
+            raise
+        _end_captures(opened)
+        for seg in segs:
+            with torch.cuda.device(seg.device):
+                seg.graph.instantiate()
+    segs[0].ledger = dict(ledger)
+    return segs, out
+
+
+def _end_captures(segs, quiet=False):
+    """End each capture of ``segs``, the last begun first; then raise the
+    first failure unless ``quiet``."""
+    error = None
+    for seg in reversed(segs):
+        try:
+            with torch.cuda.device(seg.device):
+                seg.graph.capture_end()
+        except RuntimeError as e:
+            error = error or e
+    if error is not None and not quiet:
+        raise error
+
+
 def _indexed(device):
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+PLANS = ("segments", "split_at_slots", "per_card")
+
+
+class _Part:
+    """A part of a call: ``fn`` on its static input on ``home``, running on
+    ``devices`` (in slot order), captured by ``plan``: "segments"
+    (``capture_plan``), "split_at_slots" (segments split at every copy
+    between slots too) or "per_card" (``capture_per_card``)."""
+
+    def __init__(self, fn, home, devices, plan="segments"):
+        if plan not in PLANS:
+            raise ValueError(f"unknown plan {plan!r}; expected one of {PLANS}")
+        self.fn, self.home = fn, _indexed(home)
+        self.devices = tuple(dict.fromkeys(map(_indexed, devices)))
+        self.plan = plan
 
 
 class _Plan:
@@ -392,25 +392,28 @@ class _Plan:
 
 
 class CompiledParts:
-    """Runs a forward in ``parts`` as CUDA graph segments, one plan per
-    input (shape, dtype), as the module docstring says.
+    """Runs a forward in ``parts`` as CUDA graphs, one plan per input
+    (shape, dtype), as the module docstring says.
 
-    Each part is ``(fn, home, devices)``: ``fn`` takes its share of the
-    batch (the batch split evenly over the parts along its first axis) on
-    ``home`` and returns a tensor there, running on ``devices``. A call
-    copies each share into its part's static input, issues every part's
-    replays and copies and returns a fresh tensor on ``device``: the
-    outputs of the parts concatenated there. Weights are read in place.
-    ``compile_s`` maps each key to the seconds of its first call (every
-    part's warm-up and capture, and the first replays, to their end on the
-    cards), ``host_steps`` and ``graphs`` to the replays and copies, and
-    the graphs, of one call. The plan a capture finds must be the plan of
-    its warm-up, or the call raises.
+    Each part is ``(fn, home, devices)`` or ``(fn, home, devices, plan)``:
+    ``fn`` takes its share of the batch (the batch split evenly over the
+    parts along its first axis) on ``home`` and returns a tensor there,
+    running on ``devices``; ``plan`` says how it is captured (``_Part``):
+    as segments by default, as one graph per card for distinct cards that
+    ``fn`` joins by NCCL collectives ("per_card"). A call copies each share
+    into its part's static input, issues every part's replays and copies
+    and returns a fresh tensor on ``device``: the outputs of the parts
+    concatenated there. Weights are read in place. ``compile_s`` maps each key to the
+    seconds of its first call (every part's warm-up and capture, and the
+    first replays, to their end on the cards), ``host_steps`` and
+    ``graphs`` to the replays and copies, and the graphs, of one call. The
+    plan a segment capture finds must be the plan of its warm-up, and the
+    warm-up of a ``per_card`` part must copy nothing between cards, or the
+    call raises.
     """
 
     def __init__(self, parts, device):
-        self.parts = [(fn, _indexed(home), frozenset(map(_indexed, devs)))
-                      for fn, home, devs in parts]
+        self.parts = [_Part(*p) for p in parts]
         self.device = _indexed(device)
         self.compile_s = {}
         self.host_steps = {}
@@ -428,8 +431,8 @@ class CompiledParts:
                                  f"{n} parts")
             share = (shape[0] // n, *shape[1:])
             plan = self._plans[key] = _Plan([
-                torch.empty(share, dtype=dtype, device=home)
-                for _, home, _ in self.parts])
+                torch.empty(share, dtype=dtype, device=p.home)
+                for p in self.parts])
         return plan
 
     def input_buffer(self, shape, dtype):
@@ -443,13 +446,23 @@ class CompiledParts:
 
     def _compile(self, plan):
         pools, steps, outputs = {}, [], []
-        for (fn, _, devices), x in zip(self.parts, plan.inputs):
-            for d in devices:
+        for p, x in zip(self.parts, plan.inputs):
+            for d in p.devices:
                 if d not in pools:
                     pools[d] = torch.cuda.graph_pool_handle()
-            want = _signature(warm_up_plan(fn, x, devices, WARMUP))
-            part, out = capture_plan(fn, x, devices, pools)
-            if _signature(part) != want:
+            at_slots = p.plan == "split_at_slots"
+            want = _signature(warm_up_plan(p.fn, x, p.devices, WARMUP,
+                                           at_slots))
+            if p.plan == "per_card":
+                copies = [s for s in want if s[0] == "copy"]
+                if copies:
+                    raise RuntimeError(
+                        f"a forward captured as one graph per card copies "
+                        f"between cards: {copies}")
+                part, out = capture_per_card(p.fn, x, p.devices, pools)
+            else:
+                part, out = capture_plan(p.fn, x, p.devices, pools, at_slots)
+            if p.plan != "per_card" and _signature(part) != want:
                 raise RuntimeError(
                     f"the plan found at capture, {_signature(part)}, is not "
                     f"the plan of the warm-up, {want}")
@@ -480,7 +493,7 @@ class CompiledParts:
                 t0 = time.perf_counter()
                 self._compile(plan)
                 self._run(plan)
-                for d in set().union(*(devs for *_, devs in self.parts)):
+                for d in {d for p in self.parts for d in p.devices}:
                     torch.cuda.synchronize(d)
                 self.compile_s[key] = time.perf_counter() - t0
                 self.host_steps[key] = sum(map(len, plan.steps))
@@ -492,3 +505,12 @@ class CompiledParts:
                 return plan.outputs[0].clone()
             return torch.cat([o.to(self.device, non_blocking=True)
                               for o in plan.outputs])
+
+
+class CompiledForward(CompiledParts):
+    """``fn(x)`` on ``device`` as one CUDA graph per input (shape, dtype),
+    like a jitted function's cache of programs: the one-part
+    ``CompiledParts`` that ``Interpreter`` runs."""
+
+    def __init__(self, fn, device):
+        super().__init__([(fn, device, [device])], device)

@@ -20,11 +20,16 @@ How depends on where the slots lie (``plan_case``): where every slot is one
 card, the whole forward is one graph (case A); where each data group's
 slots are one card, each group is a graph on its card, the groups' graphs
 replayed one after the other without waiting, so that the cards run at
-once (B); where a group's slots span cards, each group is captured as
-segments, one graph per card's run of work between two copies that cross
-cards, with the copies between them (C). The server captures on its batcher
-thread, and a reshard's new interpreter captures at its first batch, as JAX
-jits again after a reshard.
+once (B); where a group's slots span cards (C), a group on distinct cards
+is joined by NCCL (``parallel.collective.NcclLinks``: the communicators
+are made with the interpreter, outside any capture, and released with it)
+and captured as one graph per card, every card's capture open at once, as
+GSPMD's one program all-gathers on the device. A group whose slots repeat
+a card cannot be joined by NCCL, which takes one rank per card: it is
+captured as segments, one graph per card's run of work between two copies
+that cross cards, with the copies between them. The server captures on its
+batcher thread, and a reshard's new interpreter, with communicators of its
+own, captures at its first batch, as JAX jits again after a reshard.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ from ..models.zoo import ModelSpec
 from ..parallel import make_mesh, shard_artifact
 from ..parallel.mesh import visible_cards
 from ..parallel.partition import group_apply, partition_layers, sharded_apply
-from .compiled import CompiledParts, split
+from ..parallel.collective import NcclLinks
+from .compiled import CompiledParts
 from .health import HeartbeatMonitor
 from .serving import ServingEngine
 
@@ -53,8 +59,9 @@ def plan_case(groups, split_at_slots=False):
     each data group's slot devices: None where a slot is not a card
     (nothing is captured), "A" where every slot is one card, "B" where each
     group's slots are one card, "C" where a group's slots span cards or
-    ``split_at_slots`` asks for segments (see the module docstring). A card
-    named without an index is card 0."""
+    ``split_at_slots`` asks for segments (see the module docstring: in C a
+    group on distinct cards is one graph per card, any other group
+    segments). A card named without an index is card 0."""
     groups = [[torch.device(d) for d in g] for g in groups]
     if any(d.type != "cuda" for g in groups for d in g):
         return None
@@ -64,11 +71,6 @@ def plan_case(groups, split_at_slots=False):
     if len(set().union(*cards)) == 1:
         return "A"
     return "B" if all(len(c) == 1 for c in cards) else "C"
-
-
-def _split_move(t, device):
-    """A copy between slots that ends a segment (``_split_at_slots``)."""
-    return split(t.to(device, non_blocking=True))
 
 
 class ShardedInterpreter:
@@ -87,7 +89,9 @@ class ShardedInterpreter:
         segment plan where no second card exists. Not a user option.
 
     On the card a call replays the compiled forward (``compile_s``,
-    ``plan``); on ``cpu`` slots it runs ``sharded_apply`` eagerly.
+    ``plan``); on ``cpu`` slots it runs ``sharded_apply`` eagerly. In case
+    C each data group on distinct cards has NCCL communicators
+    (``links``), made here and released with the interpreter.
     """
 
     def __init__(self, model, layers, mesh=None, dp=None, tp=1,
@@ -112,6 +116,9 @@ class ShardedInterpreter:
         self.case = plan_case([g.devices for g in self._groups],
                               _split_at_slots)
         self._compiled = None
+        # One set of NCCL communicators per tuple of cards that a group of
+        # case C spans, made now, outside any capture.
+        self.links = {}
         if self.case is not None:
             # The graphs hold the interpreter weakly, so that their memory
             # goes with it without waiting for the garbage collector.
@@ -120,9 +127,18 @@ class ShardedInterpreter:
             if self.case == "A":
                 parts = [(lambda x: this._forward(x), first, [first])]
             else:
-                move = _split_move if _split_at_slots else None
-                parts = [(lambda x, g=g: this._group_forward(g, x, move),
-                          g.home, g.devices) for g in self._groups]
+                parts = []
+                for g in self._groups:
+                    plan = "split_at_slots" if _split_at_slots else "segments"
+                    # NCCL takes one rank per card: distinct cards only.
+                    if (self.case == "C" and not _split_at_slots
+                            and len(set(g.devices)) == len(g.devices)):
+                        plan = "per_card"
+                        key = tuple(g.devices)
+                        if key not in self.links:
+                            self.links[key] = NcclLinks(key)
+                    parts.append((lambda x, g=g: this._group_forward(g, x),
+                                  g.home, g.devices, plan))
             self._compiled = CompiledParts(parts, first)
 
     @property
@@ -148,9 +164,13 @@ class ShardedInterpreter:
         return sharded_apply(self.spec, self.layers, x, self.mesh,
                              groups=self._groups, **self._kw)
 
-    def _group_forward(self, group, x, move):
-        """One data group's forward: what cases B and C compile."""
-        return group_apply(self.spec, group, x, move=move, **self._kw)
+    def _group_forward(self, group, x, log=None):
+        """One data group's forward, through its NCCL links where it has
+        them: what cases B and C compile (``log`` receives its transfers
+        between slots)."""
+        return group_apply(self.spec, group, x, log=log,
+                           links=self.links.get(tuple(group.devices)),
+                           **self._kw)
 
     @property
     def compile_s(self):

@@ -12,14 +12,28 @@ carry their device, and ``torch.cuda.is_current_stream_capturing`` is true
 while this thread captures on the device made current by
 ``torch.cuda.device`` (on any device where none was made current, as on a
 machine of one card).
+
+Graphs captured at once (``capture_begin`` on several cards before any
+``capture_end``, as ``runtime.compiled.capture_per_card`` does) share one
+record of the operations, in program order: on the CPU every slot's tensors
+lie on one device, so nothing tells which card an operation ran on. Their
+replays then behave as the cards' graphs joined by NCCL do: nothing runs
+until every one of them has been replayed, and then all of it runs, in the
+order the forward ran it (a replay of one card's graph alone would wait in
+its NCCL kernels for its peers). ``FakeNccl`` stands in for the NCCL
+library (``parallel.collective._Nccl``) on ``cpu`` tensors: the all-gather
+writes rank i's bytes at offset i of every output, NCCL's flat rank order,
+and every call checks the communicators' ranks and that none was released.
 """
 
 import contextlib
+import sys
 import threading
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from compute_engine_tpu_torch.parallel import collective
 from compute_engine_tpu_torch.runtime import compiled
 
 
@@ -42,25 +56,124 @@ class _Tape(TorchDispatchMode):
         return out
 
 
+@torch.inference_mode()
+def _rerun(ops):
+    for func, args, kwargs, outs in ops:
+        new = func(*args, **kwargs)
+        new = new if isinstance(new, (tuple, list)) else (new,)
+        for old, now in zip(outs, [t for t in new
+                                   if isinstance(t, torch.Tensor)]):
+            if old is not now:
+                old.copy_(now)
+
+
+class _Together:
+    """The graphs of captures open at once, and their shared record."""
+
+    def __init__(self):
+        self.ops, self.graphs, self.open, self.pending = [], [], 0, set()
+        self.tape = _Tape(self.ops)
+
+
+_RECORD = {}  # install()'s record, for the captures that begin and end
+
+
 class FakeGraph:
-    """Stand-in for ``torch.cuda.CUDAGraph``."""
+    """Stand-in for ``torch.cuda.CUDAGraph``: captured by ``graph`` (one at
+    a time) or by ``capture_begin``/``capture_end`` (several at once)."""
 
     made = []
 
-    def __init__(self):
+    def __init__(self, keep_graph=False):
         self.ops, self.replays = [], 0
+        self.together = self.device = None
         FakeGraph.made.append(self)
 
-    @torch.inference_mode()
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        _RECORD["captures"].append((threading.current_thread().name, pool,
+                                    capture_error_mode))
+        state = _state()
+        self.device = state.current
+        state.captures.append(self.device)
+        together = getattr(state, "together", None)
+        if together is None:
+            together = state.together = _Together()
+            together.tape.__enter__()
+        together.graphs.append(self)
+        together.open += 1
+        self.together = together
+
+    def capture_end(self):
+        state = _state()
+        state.captures.remove(self.device)
+        together = self.together
+        together.open -= 1
+        if not together.open:
+            together.tape.__exit__(None, None, None)
+            state.together = None
+        if _RECORD["fail"]:
+            raise RuntimeError(_RECORD["fail"])
+
+    def instantiate(self):
+        assert not _state().captures, "instantiated while capturing"
+
     def replay(self):
         self.replays += 1
-        for func, args, kwargs, outs in self.ops:
-            new = func(*args, **kwargs)
-            new = new if isinstance(new, (tuple, list)) else (new,)
-            for old, now in zip(outs, [t for t in new
-                                       if isinstance(t, torch.Tensor)]):
-                if old is not now:
-                    old.copy_(now)
+        together = self.together
+        if together is None:
+            _rerun(self.ops)
+            return
+        together.pending.add(self)
+        if len(together.pending) == len(together.graphs):
+            together.pending.clear()
+            _rerun(together.ops)
+
+
+class FakeComm:
+    def __init__(self, rank, n, device):
+        self.rank, self.n, self.device = rank, n, device
+        self.released = False
+
+
+class FakeNccl:
+    """Stand-in for ``parallel.collective._Nccl`` on ``cpu`` tensors."""
+
+    def version(self):
+        return (2, 28, 9)
+
+    def init_all(self, devices):
+        comms = [FakeComm(r, len(devices), d) for r, d in enumerate(devices)]
+        _RECORD["comms"].append(comms)
+        return comms
+
+    def release(self, comms):
+        for c in comms:
+            assert not c.released
+            c.released = True
+
+    @staticmethod
+    def _check(tensors, comms):
+        assert [c.rank for c in comms] == list(range(len(tensors)))
+        assert all(c.n == len(tensors) and not c.released for c in comms)
+        assert all(t.is_contiguous() for t in tensors)
+
+    def all_gather(self, inputs, outputs, comms):
+        self._check(inputs, comms)
+        self._check(outputs, comms)
+        nbytes = inputs[0].numel() * inputs[0].element_size()
+        for o in outputs:
+            assert o.numel() * o.element_size() == len(inputs) * nbytes
+            flat = o.view(-1).view(torch.uint8)
+            for r, i in enumerate(inputs):
+                flat[r * nbytes:(r + 1) * nbytes].copy_(
+                    i.view(-1).view(torch.uint8))
+
+    def broadcast(self, tensors, comms, root=0):
+        self._check(tensors, comms)
+        for r, t in enumerate(tensors):
+            assert t.shape == tensors[root].shape
+            if r != root:
+                t.copy_(tensors[root])
 
 
 class FakeStream:
@@ -117,10 +230,12 @@ class FakeEvent:
 
 
 def install(monkeypatch):
-    """The card's graph, stream and event objects replaced by the
-    stand-ins; returns the record of captures (thread, pool, error mode per
-    capture) and ``"fail"``, a message that makes every capture raise."""
-    record = {"captures": [], "fail": None}
+    """The card's graph, stream and event objects and the NCCL library
+    replaced by the stand-ins; returns the record of captures (thread, pool,
+    error mode per capture), ``"fail"``, a message that makes every capture
+    raise, and ``"comms"``, the communicator sets made."""
+    record = {"captures": [], "fail": None, "comms": []}
+    monkeypatch.setattr(sys.modules[__name__], "_RECORD", record)
     FakeGraph.made = []
     FakeEvent.queue = []
 
@@ -139,6 +254,8 @@ def install(monkeypatch):
             raise RuntimeError(record["fail"])
 
     monkeypatch.setattr(compiled, "_SIDE_STREAMS", {})
+    nccl = FakeNccl()
+    monkeypatch.setattr(collective, "_nccl", lambda: nccl)
     for name, value in {
             "CUDAGraph": FakeGraph, "graph": graph,
             "graph_pool_handle": lambda: "pool", "Stream": FakeStream,

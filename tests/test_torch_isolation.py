@@ -26,6 +26,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+importlib.import_module("__graft_entry_torch__")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "compute_engine_tpu",
                                     "tensorflow", "keras", "PIL"))

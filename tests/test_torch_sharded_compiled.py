@@ -40,7 +40,8 @@ from compute_engine_tpu_torch.models import (convert_model, init_model,
                                              prepare_runtime_arrays,
                                              tiny_quicknet)
 from compute_engine_tpu_torch.models.zoo import ModelSpec
-from compute_engine_tpu_torch.parallel import make_mesh, shard_artifact
+from compute_engine_tpu_torch.parallel import (collective, make_mesh,
+                                               shard_artifact)
 from compute_engine_tpu_torch.parallel.partition import (group_apply,
                                                          partition_layers,
                                                          sharded_apply)
@@ -64,11 +65,14 @@ PLAN_CASE = ds.plan_case
 
 def _as_cards(case):
     """A ``plan_case`` that reads ``cpu`` slots as cards: every slot card 0
-    ("A"), data group d on card d ("B"), or as it is otherwise (with
-    ``_split_at_slots``, "C")."""
+    ("A"), data group d on card d ("B"), slot ``cpu:i`` as card i
+    ("cards"), or as it is otherwise (with ``_split_at_slots``, "C")."""
     real = PLAN_CASE
 
     def plan_case(groups, split_at_slots=False):
+        if case == "cards":
+            return real([[torch.device("cuda", d.index or 0) for d in g]
+                         for g in groups], split_at_slots)
         if case == "B":
             return real([[torch.device("cuda", d)] * len(g)
                          for d, g in enumerate(groups)], split_at_slots)
@@ -465,8 +469,8 @@ def test_segment_plan_equals_eager(card, model, domain):
     groups = partition_layers(sharded, mesh)
     kw = dict(compute_dtype=F32, domain=domain)
     cp = CompiledParts(
-        [(lambda x, g=g: group_apply(spec, g, x, move=ds._split_move, **kw),
-          g.home, g.devices) for g in groups], CPU)
+        [(lambda x, g=g: group_apply(spec, g, x, **kw), g.home, g.devices,
+          "split_at_slots") for g in groups], CPU)
     xs = [torch.from_numpy(parity.images(s, 4, size=size)) for s in (1, 2)]
     for i in range(4):
         want = sharded_apply(spec, sharded, xs[i % 2], mesh, groups=groups,
@@ -475,6 +479,230 @@ def test_segment_plan_equals_eager(card, model, domain):
     key = ((4, *size, 3), F32)
     assert cp.host_steps[key] > cp.graphs[key] > len(groups)
     assert len(record["captures"]) == cp.graphs[key]
+
+
+# -- case C on distinct cards: NCCL, one graph per card ---------------------
+
+
+def _slots(*cards):
+    """``cpu`` slots labelled as the cards named (``cpu:i`` reads as card
+    i under ``card("cards")``); their tensors all lie on the CPU."""
+    return [torch.device("cpu", i) for i in cards]
+
+
+def _jax_sharded(dp, tp, x):
+    jspec = jtiny_quicknet(**TINY)
+    jlayers = jconvert(jspec, jinit(jspec, seed=7, randomize_bn=True))
+    return np.asarray(JShardedInterpreter(jspec, jlayers, dp=dp, tp=tp,
+                                          compute_dtype=jnp.float32)(x))
+
+
+@pytest.mark.parametrize("dp, tp", [(1, 2), (2, 2), (1, 4)])
+def test_case_c_on_cards_is_one_graph_per_card(card, tiny, dp, tp):
+    """Each data group on distinct cards is joined by NCCL and captured as
+    one graph per card, all of a group's captures open at once: a call
+    replays every card's graph once, so its graphs and host steps are the
+    cards' count (2 at (1, 2), 4 at (2, 2) and (1, 4)). Every call, two
+    batches alternated, is ``torch.equal`` to the eager ``sharded_apply``
+    (copies between slots) and within ``FLOAT32_MODEL_TOL`` of JAX's
+    ``ShardedInterpreter``; one communicator set per group, made with the
+    interpreter."""
+    record = card("cards")
+    spec, layers = tiny
+    interp = ds.ShardedInterpreter(spec, layers, dp=dp, tp=tp,
+                                   compute_dtype=F32,
+                                   devices=_slots(*range(dp * tp)))
+    assert interp.case == "C"
+    assert [p.plan for p in interp._compiled.parts] == ["per_card"] * dp
+    assert [[c.rank for c in comms] for comms in record["comms"]] == [
+        list(range(tp))] * dp
+    assert len(interp.links) == dp
+    xs = [parity.images(s, 4 * dp, size=(16, 16)) for s in (21, 22)]
+    outs = [interp(xs[i % 2]) for i in range(4)]
+    for i, got in enumerate(outs):
+        assert torch.equal(got, _eager(interp, xs[i % 2])), i
+    assert not torch.equal(outs[0], outs[1])
+    key = ((4 * dp, 16, 16, 3), F32)
+    assert interp.plan["graphs"] == {key: dp * tp}
+    assert interp.plan["host_steps"] == {key: dp * tp}
+    assert len(record["captures"]) == dp * tp
+    assert all(mode == "thread_local" for *_, mode in record["captures"])
+    assert [g.replays for g in FakeGraph.made] == [4] * (dp * tp)
+    parity.assert_outputs_close(outs[0], _jax_sharded(dp, tp, xs[0]),
+                                **parity.FLOAT32_MODEL_TOL)
+
+
+@pytest.mark.parametrize("model", ["tiny_quicknet", "mini_alexnet"])
+@pytest.mark.parametrize("domain", ["float", "packed"])
+def test_case_c_on_cards_equals_eager_in_both_domains(card, model, domain):
+    """The NCCL plan in the bf16 stream, float and packed domain (the packed
+    words of a binary layer gathered, a lazy binary stream broadcast):
+    ``torch.equal`` to the eager ``sharded_apply`` over two batches
+    alternated."""
+    card("cards")
+    if model == "tiny_quicknet":
+        spec, size = tiny_quicknet(**TINY), (16, 16)
+    else:
+        spec = ModelSpec("mini_alexnet", _mini_alexnet, input_size=(64, 64),
+                         num_classes=10)
+        size = (64, 64)
+    layers = convert_model(spec, init_model(spec, seed=2, randomize_bn=True))
+    interp = ds.ShardedInterpreter(spec, layers, dp=1, tp=2, domain=domain,
+                                   devices=_slots(0, 1))
+    xs = [parity.images(s, 2, size=size) for s in (31, 32)]
+    for i in range(4):
+        assert torch.equal(interp(xs[i % 2]), _eager(interp, xs[i % 2])), i
+    assert interp.plan["host_steps"] == {((2, *size, 3), F32): 2}
+
+
+def test_no_broadcast_follows_a_gather(card, tiny):
+    """The eager forward through the group's NCCL links, logged: each
+    all-gather sends every slice to every other slot (copies gather on the
+    home slot only), and a sharded layer
+    after a gather reads the gathered activation where it lies, so the
+    links broadcast less than the copies do, and the output is the
+    same."""
+    card("cards")
+    spec, layers = tiny
+    interp = ds.ShardedInterpreter(spec, layers, dp=1, tp=4,
+                                   compute_dtype=F32,
+                                   devices=_slots(0, 1, 2, 3))
+    x = torch.from_numpy(parity.images(41, 2, size=(16, 16)))
+    nccl_log, copies_log = [], []
+    group = interp._groups[0]
+    got = interp._group_forward(group, x, log=nccl_log)
+    want = sharded_apply(spec, interp.layers, x, interp.mesh,
+                         groups=interp._groups, log=copies_log,
+                         compute_dtype=F32)
+    assert torch.equal(got, want)
+
+    def kinds(log, kind):
+        return [r for r in log if r["kind"] == kind]
+
+    # Copies: each of 3 slices to the home slot; NCCL: each of 4 to the 3
+    # other slots.
+    assert len(kinds(nccl_log, "all_gather")) == 4 * len(
+        kinds(copies_log, "all_gather"))
+    assert 0 < len(kinds(nccl_log, "broadcast")) < len(
+        kinds(copies_log, "broadcast"))
+
+
+def test_a_group_repeating_a_card_keeps_the_segment_plan(card, tiny):
+    """NCCL takes one rank per card: a group on cards (0, 0, 1, 1) is
+    captured as segments, with no communicator made."""
+    record = card("cards")
+    spec, layers = tiny
+    interp = ds.ShardedInterpreter(spec, layers, dp=1, tp=4,
+                                   compute_dtype=F32,
+                                   devices=_slots(0, 0, 1, 1))
+    assert interp.case == "C"
+    assert [p.plan for p in interp._compiled.parts] == ["segments"]
+    assert interp.links == {} and record["comms"] == []
+    x = parity.images(42, 2, size=(16, 16))
+    for _ in range(2):
+        assert torch.equal(interp(x), _eager(interp, x))
+
+
+def test_nccl_links_take_distinct_cards(card):
+    card("cards")
+    with pytest.raises(ValueError, match="distinct cards"):
+        collective.NcclLinks(_slots(0, 0))
+
+
+def test_a_failed_per_card_capture_ends_every_capture_and_raises(card, tiny):
+    record = card("cards")
+    spec, layers = tiny
+    interp = ds.ShardedInterpreter(spec, layers, dp=1, tp=2,
+                                   compute_dtype=F32, devices=_slots(0, 1))
+    x = parity.images(43, 2, size=(16, 16))
+    record["fail"] = "operation not permitted when stream is capturing"
+    with pytest.raises(RuntimeError, match="not permitted"):
+        interp(x)
+    assert standins._state().captures == []
+    assert interp.compile_s == {} and interp.plan["graphs"] == {}
+    record["fail"] = None
+    assert torch.equal(interp(x), _eager(interp, x))
+
+
+def test_a_copy_between_cards_in_a_per_card_part_is_refused(card):
+    """A forward captured as one graph per card must join its cards by NCCL
+    only: a copy between two cards in its warm-up raises."""
+    card("A")
+
+    def fn(x):
+        (x + 1).to(META, non_blocking=True)
+        return x * 2
+
+    cp = CompiledParts([(fn, CPU, [CPU, META], "per_card")], CPU)
+    with pytest.raises(RuntimeError, match="copies between cards"):
+        cp(torch.zeros(4))
+    with pytest.raises(ValueError, match="unknown plan"):
+        CompiledParts([(fn, CPU, [CPU], "whole")], CPU)
+
+
+def test_per_card_launch_counts_per_call(card, tiny, monkeypatch):
+    """The launches recorded while every card captures are counted once
+    per call, whichever card's graph holds them."""
+    real = group_apply
+
+    def counting_group_apply(*a, **kw):
+        out = real(*a, **kw)
+        counts.count(binary_residual_block)
+        return out
+
+    monkeypatch.setattr(binary_residual_block, "launches", 0)
+    monkeypatch.setattr(ds, "group_apply", counting_group_apply)
+    card("cards")
+    spec, layers = tiny
+    interp = ds.ShardedInterpreter(spec, layers, dp=2, tp=2,
+                                   compute_dtype=F32,
+                                   devices=_slots(0, 1, 2, 3))
+    x = parity.images(44, 4, size=(16, 16))
+    for calls in (1, 2, 3):
+        interp(x)
+        assert binary_residual_block.launches == 2 * calls
+
+
+def test_a_reshard_gets_new_communicators(card, tiny):
+    """MultiHostServer over two hosts of two cards, tp 2: each (2, 2) group
+    has its communicators; losing a host builds the survivors' (1, 2)
+    interpreter with a new set, and the old interpreter's sets are released
+    with it. Every served row equals the eager forward on its mesh."""
+    import gc
+
+    record = card("cards")
+    spec, layers = tiny
+    images = parity.images(46, 8, size=(16, 16))
+    with ds.MultiHostServer(spec, layers,
+                            host_devices={"h0": _slots(0, 1),
+                                          "h1": _slots(2, 3)},
+                            tp=2, batch_size=4, max_delay_ms=20,
+                            heartbeat_timeout_s=3600,
+                            compute_dtype=F32) as server:
+        first = server._interp
+        assert first.case == "C" and len(record["comms"]) == 2
+        rows = [f.result(timeout=WAIT)
+                for f in [server.submit(im) for im in images]]
+        for i in (0, 4):
+            assert np.array_equal(np.stack(rows[i:i + 4]),
+                                  _eager(first, images[i:i + 4]).numpy())
+        old = [c for comms in record["comms"] for c in comms]
+        server.monitor.heartbeat("h0")
+        server.monitor._last_seen["h1"] = server.monitor._clock() - 7200
+        server.monitor.check_now()
+        second = server._interp
+        assert second is not first and second.mesh.shape == {"data": 1,
+                                                             "model": 2}
+        assert len(record["comms"]) == 3
+        del first
+        rows = [f.result(timeout=WAIT)
+                for f in [server.submit(im) for im in images[:4]]]
+        assert np.array_equal(np.stack(rows), _eager(second,
+                                                     images[:4]).numpy())
+        gc.collect()
+        assert all(c.released for c in old)
+        assert not any(c.released for c in record["comms"][2])
+        assert second.plan["host_steps"] == {((4, 16, 16, 3), F32): 2}
 
 
 # -- MultiHostServer -----------------------------------------------------------

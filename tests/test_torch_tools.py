@@ -352,3 +352,114 @@ def test_committed_tp_scaling():
     assert all(r["case"] == "A" and r["host_steps"] == 1
                for r in report["dp_scaling"] if "x" in r["slots"]
                or r["dp"] == 1)
+
+
+# -- runtime.benchmark: JAX's defaults and command line ------------------------
+
+_RESULT = {"model": "quicknet", "batch": 8, "kernel": "auto",
+           "latency_ms_p50": 1.25, "images_per_sec": 6400.0,
+           "compute_dtype": "bfloat16", "device_busy_ms": None}
+
+
+def _stub_runtime_benchmark(monkeypatch, module):
+    """``module.benchmark_model`` replaced by a stub that records its
+    keyword arguments and returns ``_RESULT``."""
+    calls = []
+
+    def stub(**kw):
+        calls.append(kw)
+        return dict(_RESULT)
+
+    monkeypatch.setattr(module, "benchmark_model", stub)
+    return calls
+
+
+@pytest.mark.parametrize("argv", [[], ["--json"]])
+def test_benchmark_cli_takes_jaxs_defaults(monkeypatch, capsys, argv):
+    """``python -m ...runtime.benchmark`` and JAX's CLI, both over a stubbed
+    ``benchmark_model``: the same batch, iterations and warm-up by default;
+    without ``--json`` both print the key/value table, with it one JSON
+    line."""
+    import compute_engine_tpu.runtime.benchmark as jrbm
+
+    from compute_engine_tpu_torch.runtime import benchmark as rbm
+
+    jcalls = _stub_runtime_benchmark(monkeypatch, jrbm)
+    calls = _stub_runtime_benchmark(monkeypatch, rbm)
+    jrbm.main(argv)
+    want = capsys.readouterr().out
+    rbm.main(argv)
+    got = capsys.readouterr().out
+    assert got == want
+    if argv:
+        assert json.loads(got) == _RESULT
+    else:
+        assert got.splitlines()[0] == f"{'model':18s} quicknet"
+    for key in ("batch", "iters", "warmup", "kernel", "int8_pipeline",
+                "domain"):
+        assert calls[0][key] == jcalls[0][key], key
+    assert (calls[0]["batch"], calls[0]["warmup"]) == (8, 3)
+
+
+def test_benchmark_model_signature_is_jaxs():
+    """``benchmark_model()`` times JAX's batch after JAX's warm-up, and
+    takes ``binary_dtype``."""
+    import inspect
+
+    import compute_engine_tpu.runtime.benchmark as jrbm
+
+    from compute_engine_tpu_torch.runtime import benchmark as rbm
+
+    want = inspect.signature(jrbm.benchmark_model).parameters
+    got = inspect.signature(rbm.benchmark_model).parameters
+    for key in ("batch", "iters", "warmup", "repeats", "kernel", "seed",
+                "artifact_path", "input_size", "int8_pipeline", "domain"):
+        assert got[key].default == want[key].default, key
+    assert "binary_dtype" in got
+
+
+def test_benchmark_model_accepts_binary_dtype(monkeypatch):
+    """On the stand-in card: ``binary_dtype`` (a TPU operand type) is taken
+    and changes nothing."""
+    import _torch_card_standins as standins
+    from _torch_card_standins import FakeEvent
+
+    from compute_engine_tpu_torch.runtime import benchmark as rbm
+
+    standins.install(monkeypatch)
+    prepare = rbm.prepare_forward
+    monkeypatch.setattr(rbm, "resolve_device", torch.device)
+    monkeypatch.setattr(rbm, "prepare_forward",
+                        lambda *a: prepare(*a[:7], "cpu", *a[8:]))
+    got = []
+    for dtype in (None, jnp.int8):
+        FakeEvent.queue = [1.0, 2.5] * 2
+        kw = {} if dtype is None else {"binary_dtype": dtype}
+        got.append(rbm.benchmark_model(SPEC, batch=2, iters=1, repeats=2,
+                                       **kw))
+    for r in got:
+        r.pop("compile_s")
+    assert got[0] == got[1]
+    assert got[0]["latency_ms_p50"] == 1.5
+
+
+def test_int8_pipeline_with_an_artifact_is_ignored(tmp_path):
+    """As JAX's: an artifact is timed as it was converted, and
+    ``int8_pipeline`` beside it is ignored (the forward is the artifact's,
+    no calibration runs)."""
+    from compute_engine_tpu_torch.converter import save_artifact
+    from compute_engine_tpu_torch.models import convert_model
+    from compute_engine_tpu_torch.runtime import benchmark as rbm
+
+    path = str(tmp_path / "tiny.npz")
+    save_artifact(path, convert_model(SPEC, init_model(SPEC, seed=3,
+                                                       randomize_bn=True)),
+                  SPEC.name)
+    outs = []
+    for int8 in (False, True):
+        spec, layers, x, forward = rbm.prepare_forward(
+            SPEC, batch=2, artifact_path=path, device="cpu",
+            int8_pipeline=int8)
+        assert not any("kernel_int8" in e for e in layers.values())
+        outs.append(forward())
+    assert torch.equal(outs[0], outs[1])
