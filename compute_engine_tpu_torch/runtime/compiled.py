@@ -51,12 +51,20 @@ a ledger, not counted, and every replay adds the ledger. The warm-up
 forwards are the compile step and are not counted either, so the counts
 hold the forwards the caller asked for.
 
+Profiler spans (``utils.profiling``): while a profiler runs, every call
+records its own host path at that call, ``compiled/lock`` (waiting for the
+lock), ``compiled/input_copy`` (the copies into the static inputs),
+``compiled/replay`` (every step's replay or copy and the launch ledger; at
+a key's first call also its compile) and ``compiled/output`` (the clone or
+the concatenation of the outputs). Spans inside the forward
+(``utils.profiling.annotate``) are recorded once, at the capture, and not
+at the replays, which run no Python: profile by kernel name through
+``packed_apply``.
+
 What a graph cannot hold: the kernels' debug builds wait for each launch
 to read their error word, so a call inside ``kernels.debug_checks()``
-raises (debug checks stay an eager ``packed_apply`` tool); profiler spans
-inside the forward (``utils.profiling.annotate``) are recorded once, at the
-capture, so profile by kernel name through ``packed_apply``. A failed
-capture raises; nothing falls back to the eager forward on the card.
+raises (debug checks stay an eager ``packed_apply`` tool). A failed capture
+raises; nothing falls back to the eager forward on the card.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels import counts, debug
+from ..utils.profiling import _spans
 
 __all__ = ["CompiledForward", "CompiledParts", "warm_up_plan",
            "capture_plan", "capture_per_card", "split", "slot_copy", "PLANS",
@@ -480,31 +489,49 @@ class CompiledParts:
                     step.run()
 
     def __call__(self, x):
+        return self._call(x, _spans())
+
+    def _call(self, x, span):
+        """The forward of ``x``, its stages in the spans of ``span``, the
+        span maker of a caller that has checked for a profiler already
+        (``Interpreter.__call__``)."""
         if debug.enabled():
             raise RuntimeError(debug.NOT_CAPTURED)
         key = (tuple(x.shape), x.dtype)
-        with self._lock:
+        with span("compiled/lock"):
+            self._lock.acquire()
+        try:
             plan = self._plan(key)
             per = x.shape[0] // len(plan.inputs)
-            for p, buf in enumerate(plan.inputs):
-                if x is not buf:
-                    buf.copy_(x[p * per:(p + 1) * per], non_blocking=True)
-            if plan.steps is None:
-                t0 = time.perf_counter()
-                self._compile(plan)
-                self._run(plan)
-                for d in {d for p in self.parts for d in p.devices}:
-                    torch.cuda.synchronize(d)
-                self.compile_s[key] = time.perf_counter() - t0
-                self.host_steps[key] = sum(map(len, plan.steps))
-                self.graphs[key] = sum(isinstance(s, _Segment)
-                                       for part in plan.steps for s in part)
-            else:
-                self._run(plan)
-            if len(plan.outputs) == 1:
-                return plan.outputs[0].clone()
-            return torch.cat([o.to(self.device, non_blocking=True)
-                              for o in plan.outputs])
+            with span("compiled/input_copy"):
+                for p, buf in enumerate(plan.inputs):
+                    if x is not buf:
+                        buf.copy_(x[p * per:(p + 1) * per], non_blocking=True)
+            with span("compiled/replay"):
+                if plan.steps is None:
+                    self._first_run(plan, key)
+                else:
+                    self._run(plan)
+            with span("compiled/output"):
+                if len(plan.outputs) == 1:
+                    return plan.outputs[0].clone()
+                return torch.cat([o.to(self.device, non_blocking=True)
+                                  for o in plan.outputs])
+        finally:
+            self._lock.release()
+
+    def _first_run(self, plan, key):
+        """Compiles ``key``'s plan, replays it and waits for the cards: the
+        seconds of it all are the key's ``compile_s``."""
+        t0 = time.perf_counter()
+        self._compile(plan)
+        self._run(plan)
+        for d in {d for p in self.parts for d in p.devices}:
+            torch.cuda.synchronize(d)
+        self.compile_s[key] = time.perf_counter() - t0
+        self.host_steps[key] = sum(map(len, plan.steps))
+        self.graphs[key] = sum(isinstance(s, _Segment)
+                               for part in plan.steps for s in part)
 
 
 class CompiledForward(CompiledParts):

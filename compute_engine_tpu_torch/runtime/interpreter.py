@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..interop import layers_from_numpy
 from ..models import KERNELS, get_model, packed_apply, prepare_runtime_arrays
 from ..models.zoo import ModelSpec
+from ..utils.profiling import _spans
 from .compiled import CompiledForward
 
 __all__ = ["Interpreter", "artifact_model"]
@@ -140,12 +141,21 @@ class Interpreter:
         quarter of the bytes over the bus. On the card the first call at an
         input (shape, dtype) compiles (``compile_s``) and every call replays
         the compiled forward; inside ``kernels.debug_checks()`` it raises
-        (run ``packed_apply`` there)."""
-        if not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(np.asarray(x))
-        if self._compiled is not None:
-            return self._compiled(x)
-        return self._forward(x.to(self.device))
+        (run ``packed_apply`` there).
+
+        While a profiler runs, the call records ``interpreter/call`` over
+        itself, ``interpreter/as_tensor`` over the conversion of a
+        non-tensor ``x`` and, on the card, the compiled forward's
+        ``compiled/*`` spans inside it (``utils.profiling``); otherwise it
+        checks once for a profiler and records nothing."""
+        span = _spans()
+        with span("interpreter/call"):
+            if not isinstance(x, torch.Tensor):
+                with span("interpreter/as_tensor"):
+                    x = torch.as_tensor(np.asarray(x))
+            if self._compiled is not None:
+                return self._compiled._call(x, span)
+            return self._forward(x.to(self.device))
 
     def _forward(self, x):
         """The forward of one batch already on the device: what is

@@ -28,7 +28,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from ..utils.profiling import annotate
+from ..utils.profiling import span
 
 __all__ = ["ServingEngine", "ServingStats"]
 
@@ -42,6 +42,13 @@ class ServingStats:
     are spans between CUDA events on the batcher's stream (the copy to the
     card, ``infer_fn``, the copy of the whole result back); otherwise
     ``forward_ms`` is host time in ``infer_fn`` and the other two stay 0.
+    ``queue_wait_ms`` is host time from each request's ``submit`` to the
+    batcher taking it off the queue. ``batches_full`` counts the batches
+    that closed at ``batch_size`` requests; the rest, ``batches_timed_out``,
+    closed short of it when ``max_delay_ms`` ran out. A failed batch counts
+    in none of these. Together they tell an operator whether to change
+    ``batch_size`` or ``max_delay_ms``: a long wait beside full batches
+    asks for a larger batch, timed-out batches for a shorter delay.
     """
 
     requests: int = 0
@@ -51,6 +58,12 @@ class ServingStats:
     h2d_ms: float = 0.0
     forward_ms: float = 0.0
     d2h_ms: float = 0.0
+    queue_wait_ms: float = 0.0
+    batches_full: int = 0
+
+    @property
+    def batches_timed_out(self):
+        return self.batches - self.batches_full
 
     @property
     def mean_batch_fill(self):
@@ -139,7 +152,7 @@ class ServingEngine:
                     f"input dtype {self._input_dtype}; one buffer and one "
                     "forward serve every batch, so requests must be "
                     "homogeneous")
-        self._queue.put((img, fut))
+        self._queue.put((img, fut, time.perf_counter()))
         return fut
 
     def predict(self, image, timeout=None):
@@ -152,7 +165,7 @@ class ServingEngine:
         self._thread.join(timeout=5)
         while True:
             try:
-                _, fut = self._queue.get_nowait()
+                _, fut, _ = self._queue.get_nowait()
             except queue.Empty:
                 break
             fut.set_exception(RuntimeError("the serving engine was closed"))
@@ -164,22 +177,27 @@ class ServingEngine:
         self.close()
 
     def _collect(self):
-        """Block for the first request, then fill the batch up to max_delay."""
+        """Block for the first request, then fill the batch up to max_delay.
+        Returns the batch's ``(image, future)`` items and the ms its
+        requests waited in the queue, summed."""
         try:
-            first = self._queue.get(timeout=0.1)
+            img, fut, submitted = self._queue.get(timeout=0.1)
         except queue.Empty:
-            return []
-        items = [first]
+            return [], 0.0
+        waited = time.perf_counter() - submitted
+        items = [(img, fut)]
         deadline = time.monotonic() + self.max_delay
         while len(items) < self.batch_size:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 break
             try:
-                items.append(self._queue.get(timeout=remaining))
+                img, fut, submitted = self._queue.get(timeout=remaining)
             except queue.Empty:
                 break
-        return items
+            waited += time.perf_counter() - submitted
+            items.append((img, fut))
+        return items, waited * 1e3
 
     def _mark(self):
         """A point in time: a CUDA event on the batcher's stream when serving
@@ -193,7 +211,6 @@ class ServingEngine:
     def _span_ms(self, a, b):
         return a.elapsed_time(b) if self._cuda else (b - a) * 1e3
 
-    @annotate("serving/stack+h2d")
     def _stage(self, items):
         """The batch of ``items``, zero-padded, where ``infer_fn`` takes it;
         the host time of stacking it (ms) and the marks around the copy to
@@ -224,7 +241,6 @@ class ServingEngine:
             batch = self._host.to(self._device, non_blocking=True)
         return batch, stack_ms, start, self._mark()
 
-    @annotate("serving/forward")
     def _forward(self, batch):
         """``infer_fn`` on the batch; the result on the host as numpy, and
         the marks after the forward and after the copy back."""
@@ -238,14 +254,18 @@ class ServingEngine:
             out = out.copy()  # the buffer is written again by the next batch
         return out, done, self._mark()
 
-    def _serve(self, items):
+    def _serve(self, items, queue_wait_ms=0.0):
+        """Serves ``(image, future)`` items as one batch; their requests
+        waited ``queue_wait_ms`` in the queue."""
         try:
             # The batcher is its own thread: make the served card its current
             # device, for the events and for whatever infer_fn allocates.
             with (torch.cuda.device(self._device) if self._cuda
                   else contextlib.nullcontext()):
-                batch, stack_ms, t_start, t_on_device = self._stage(items)
-                out, t_done, t_back = self._forward(batch)
+                with span("serving/stack+h2d"):
+                    batch, stack_ms, t_start, t_on_device = self._stage(items)
+                with span("serving/forward"):
+                    out, t_done, t_back = self._forward(batch)
                 if self._cuda:
                     t_back.synchronize()
         except Exception as e:  # to every waiter of this batch; carry on
@@ -261,11 +281,13 @@ class ServingEngine:
         stats.requests += len(items)
         stats.batches += 1
         stats.padded_slots += self.batch_size - len(items)
+        stats.queue_wait_ms += queue_wait_ms
+        stats.batches_full += len(items) == self.batch_size
         for i, (_, fut) in enumerate(items):
             fut.set_result(out[i])
 
     def _loop(self):
         while not self._stop.is_set():
-            items = self._collect()
+            items, waited_ms = self._collect()
             if items:
-                self._serve(items)
+                self._serve(items, waited_ms)

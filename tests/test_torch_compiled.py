@@ -274,6 +274,76 @@ def test_compiled_interpreter_refuses_debug_checks(fake_card, tiny):
         eager(x)  # the eager forward runs the checks on the CPU
 
 
+CALL_SPANS = ("interpreter/call", "interpreter/as_tensor", "compiled/lock",
+              "compiled/input_copy", "compiled/replay", "compiled/output")
+
+
+def _call_spans(prof):
+    """``(name, parent)`` of each call span in the profile, in the order
+    they started, where ``parent`` is the nearest call span around it."""
+    out = []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.name not in CALL_SPANS:
+            continue
+        up = e.cpu_parent
+        while up is not None and up.name not in CALL_SPANS:
+            up = up.cpu_parent
+        out.append((e.name, None if up is None else up.name))
+    return out
+
+
+@pytest.mark.parametrize("host", [True, False], ids=["numpy", "tensor"])
+def test_a_call_records_its_spans_nested(fake_card, tiny, host):
+    """Under the profiler, one compiled call on a host batch records the
+    six call spans, each stage inside ``interpreter/call`` and in the
+    order it runs; a tensor needs no ``interpreter/as_tensor``."""
+    spec, layers = tiny
+    interp, eager = _interpreter(spec, layers)
+    x = parity.images(7, 2)
+    x = x if host else torch.from_numpy(x)
+    interp(x)  # the compile, outside the profile
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = interp(x)
+    assert torch.equal(got, eager(x))
+    stages = [n for n in CALL_SPANS[1:]
+              if host or n != "interpreter/as_tensor"]
+    assert _call_spans(prof) == [("interpreter/call", None)] + [
+        (n, "interpreter/call") for n in stages]
+
+
+def test_a_call_with_no_profiler_checks_once_and_records_nothing(
+        fake_card, tiny, monkeypatch):
+    """With no profiler running, a call reads the profiler's flag once and
+    makes no ``record_function`` (NVTX is no longer called at all)."""
+    from compute_engine_tpu_torch.utils import profiling
+
+    spec, layers = tiny
+    interp, eager = _interpreter(spec, layers)
+    x = parity.images(8, 2)
+    interp(x)  # the compile
+    want = eager(x)
+
+    class Flag:
+        reads = 0
+
+        @property
+        def _is_profiler_enabled(self):
+            Flag.reads += 1
+            return False
+
+    def refuse(*a, **k):
+        raise AssertionError("a span recorded with no profiler")
+
+    monkeypatch.setattr(profiling, "_autograd_profiler", Flag())
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", refuse)
+    for calls in (1, 2, 3):
+        assert torch.equal(interp(x), want)
+        assert Flag.reads == calls
+
+
 class _OnTheCard:
     """An interpreter as the engine sees one on a card: its ``device`` says
     CUDA, and its calls and static inputs are the compiled CPU
@@ -298,9 +368,9 @@ def test_serving_stages_into_the_static_input(fake_card, tiny, monkeypatch):
     seen = []
 
     class Spy(CompiledForward):
-        def __call__(self, x):
+        def _call(self, x, span):
             seen.append(x)
-            return super().__call__(x)
+            return super()._call(x, span)
 
     interp, eager = _interpreter(spec, layers, compiled_cls=Spy)
     monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)

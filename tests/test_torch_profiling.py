@@ -1,5 +1,6 @@
-"""The port's profiling labels on the CPU: ``annotate`` is transparent to the
-function it wraps and its label shows in a trace; ``trace`` writes a file."""
+"""The port's profiling spans on the CPU: ``annotate`` is transparent to the
+function it wraps and its label shows in a trace; ``span`` records only
+while a profiler runs; ``trace`` writes a file and sees every thread."""
 
 import json
 import os
@@ -51,8 +52,7 @@ def test_trace_writes_a_chrome_trace_with_the_label(tmp_path):
 
 def test_the_serving_loop_is_annotated(tmp_path):
     """``serving/stack+h2d`` and ``serving/forward`` are the spans of a served
-    batch. The profiler follows the thread that started it, so the batch is
-    served here on this thread, through the batcher's own method."""
+    batch, served here on this thread through the batcher's own method."""
     from concurrent.futures import Future
 
     import numpy as np
@@ -70,8 +70,55 @@ def test_the_serving_loop_is_annotated(tmp_path):
     assert {"serving/stack+h2d", "serving/forward"} <= keys
 
 
+def test_the_batcher_thread_is_traced(tmp_path):
+    """``trace`` profiles every thread: a request served through the
+    engine's own batcher thread shows its two spans."""
+    import numpy as np
+
+    from compute_engine_tpu_torch.runtime.serving import ServingEngine
+
+    with ServingEngine(lambda b: np.ones((len(b), 1)), batch_size=2,
+                       max_delay_ms=1, input_dtype=np.float32) as eng:
+        with trace(str(tmp_path)) as prof:
+            row = eng.submit(np.zeros((2, 2, 3), np.float32)).result(
+                timeout=30)
+    assert row.tolist() == [1.0]
+    keys = {e.key for e in prof.key_averages()}
+    assert {"serving/stack+h2d", "serving/forward"} <= keys
+
+
+def test_span_records_only_while_a_profiler_runs(monkeypatch):
+    """Off, ``span`` and the port's one-check span maker make no
+    ``record_function``; on, a span shows in the profile."""
+    def refuse(*a, **k):
+        raise AssertionError("a span recorded with no profiler")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        m.setattr(torch.autograd.profiler, "record_function", refuse)
+        with profiling.span("test/off"):
+            pass
+        with profiling._spans()("test/off"):
+            pass
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("test/on"):
+            torch.ones(2) + 1
+        with profiling._spans()("test/on_too"):
+            torch.ones(2) + 1
+    keys = {e.key for e in prof.key_averages()}
+    assert {"test/on", "test/on_too"} <= keys
+    # user annotations, as the benchmark's trace reads host spans
+    marked = {e.name(): e.is_user_annotation()
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("test/")}
+    assert marked == {"test/on": True, "test/on_too": True}
+
+
 def test_exports_match_the_jax_package():
+    """JAX's two names are among the port's, which adds ``span``."""
     import compute_engine_tpu.utils as jutils
 
-    assert profiling.__all__ == ["annotate", "trace"]
+    assert {"annotate", "trace"} <= set(profiling.__all__)
+    assert profiling.__all__ == ["annotate", "span", "trace"]
     assert {"annotate", "trace"} <= set(dir(jutils))

@@ -138,6 +138,60 @@ def test_padding_and_stats_arithmetic():
     assert ServingStats().mean_batch_fill == 0.0
 
 
+def test_a_full_and_a_timed_out_batch_are_each_counted():
+    """A batch that reaches ``batch_size`` closes ``full``; one short of it
+    closes when ``max_delay_ms`` runs out; a failed batch counts in
+    neither."""
+    gate = threading.Event()
+
+    def infer_fn(batch):
+        gate.wait(WAIT)
+        if batch[0, 0, 0, 0] < 0:
+            raise RuntimeError("refused")
+        return np.zeros((batch.shape[0], 1), np.float32)
+
+    with ServingEngine(infer_fn, batch_size=2, max_delay_ms=300,
+                       input_dtype=np.float32) as eng:
+        one = np.ones((2, 2, 3), np.float32)
+        full = [eng.submit(one), eng.submit(one)]  # one batch of two
+        gate.set()
+        [f.result(timeout=WAIT) for f in full]
+        eng.submit(one).result(timeout=WAIT)  # alone: 300 ms, then served
+        with pytest.raises(RuntimeError, match="refused"):
+            eng.submit(-one).result(timeout=WAIT)
+    stats = eng.stats
+    assert (stats.batches, stats.batches_full, stats.batches_timed_out) == \
+        (2, 1, 1)
+    assert stats.batches_full + stats.batches_timed_out == stats.batches
+
+
+def test_a_request_behind_a_slow_batch_waits_at_least_its_time():
+    """``queue_wait_ms`` sums each request's time from ``submit`` to the
+    batcher taking it: a request submitted while a slow batch runs waits
+    at least the rest of that batch."""
+    started, slow_s = threading.Event(), 0.3
+    ended = []
+
+    def infer_fn(batch):
+        if not started.is_set():
+            started.set()
+            time.sleep(slow_s)
+            ended.append(time.perf_counter())
+        return np.zeros((batch.shape[0], 1), np.float32)
+
+    with ServingEngine(infer_fn, batch_size=1, max_delay_ms=1,
+                       input_dtype=np.float32) as eng:
+        img = np.zeros((2, 2, 3), np.float32)
+        first = eng.submit(img)
+        assert started.wait(WAIT)
+        submitted = time.perf_counter()
+        behind = eng.submit(img)
+        first.result(timeout=WAIT)
+        behind.result(timeout=WAIT)
+    assert eng.stats.requests == 2
+    assert eng.stats.queue_wait_ms >= (ended[0] - submitted) * 1e3 > 0
+
+
 def test_wrong_shape_fails_its_batch_only():
     with ServingEngine(lambda b: b[:, 0, 0, :1], batch_size=1,
                        max_delay_ms=1) as eng:
