@@ -30,7 +30,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with the converted model's int8 kernel, computed on the card equals
      torch's integer conv or matmul on the CPU (the convs at batch 8, the
      head at batch 128), and so does the int8 max pool.
-   ``--compare-only`` stops here. ``--sweep-residual`` times the residual
+   - the zero-padded residual block (``zero_pad_phase``, from a generator
+     of its own) at Bi-RealNet-18's four stride-1 shapes at batches 1, 8
+     and 128, in bfloat16 and float32, with and without the add, at a
+     ragged and an odd channel count and with C != C_out, in the default
+     build and in the debug build;
+   ``--compare-only`` stops here. ``--zero-pad-only`` builds, runs the
+   zero-padded comparisons, times the zero-padded block at Bi-RealNet's
+   b128 shapes beside the one-padded block and the lowerings it replaces,
+   QuickNet's 16 one-padded blocks per forward, drives Bi-RealNet-18 b128
+   through ``Interpreter`` (the launches ``expected_launches`` gives, the
+   logits ``torch.equal`` to the plain versions' forward) and stops.
+   ``--sweep-residual`` times the residual
    block at every block size (warps, channel tiles per block) it can be
    launched with, at the QuickNet shapes, and stops: the choice in
    ``kernels/residual.py::_choose_blocks`` rests on it.
@@ -260,6 +271,11 @@ GEMM_MS_BEFORE = {"conv2": 0.6032, "conv3": 0.2183, "conv4": 0.2892,
                   "conv5": 0.2017, "fc1": 0.0537, "fc2": 0.0253}
 SPLITK_MS_BEFORE = 0.0102
 RAGGED = (4, 9, 9, 48)
+# Bi-RealNet-18's 3x3 stride-1 zero-padded binary convs: (h, w, c), three
+# or four of each a forward, 13 in all.
+BIREAL_BLOCKS = [(56, 56, 64), (28, 28, 128), (14, 14, 256), (7, 7, 512)]
+BIREAL_BLOCK_COUNTS = (4, 3, 3, 3)
+ZERO_PAD_BATCHES = (1, 8, 128)
 ODD = (3, 6, 5, 20)  # channels not a multiple of 8: no 16-byte access
 BLOCKS_PER_SHAPE = 4  # QuickNet: 4 blocks in each of the four sections
 TOLERANCE = "torch.equal (bit for bit)"
@@ -1091,6 +1107,171 @@ def reset_launches():
 
     binary_residual_block.launches = 0
     bgemm.launches = bgemm.splitk_launches = 0
+
+
+def zero_pad_compare(zrng, dev, checked=False):
+    """The zero-padded block kernel against its plain version, ``torch.equal``:
+    Bi-RealNet's four shapes at ``ZERO_PAD_BATCHES``, bfloat16 and float32,
+    with and without the add; RAGGED and ODD, and C != C_out without the
+    add. ``checked`` runs the kernel's debug build. Returns the cases."""
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.core.reference import (
+        zero_padding_tap_delta)
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+
+    cases = [((n, *hwc), dtype, None)
+             for n in ZERO_PAD_BATCHES for hwc in BIREAL_BLOCKS
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(RAGGED, torch.bfloat16, None), (ODD, torch.float32, None),
+              (ODD, torch.bfloat16, None), ((8, 14, 14, 256), torch.bfloat16,
+                                            384), (RAGGED, torch.float32, 20)]
+    done = 0
+    for shape, dtype, c_out in cases:
+        p = BConv2DParams(channels_in=shape[-1], padding=Padding.SAME,
+                          pad_value=0)
+        for residual in ((False,) if c_out else (True, False)):
+            x, pf, tr = block_case(zrng, shape, dev, dtype, False, c_out)
+            delta = zero_padding_tap_delta(pf, p)
+            with debug_checks() if checked else contextlib.nullcontext():
+                got = binary_residual_block(x, pf, tr, p,
+                                            has_residual=residual,
+                                            tap_delta=delta)
+                torch.cuda.synchronize()
+            want = binary_residual_block_plain(x, pf, tr, p,
+                                               has_residual=residual)
+            err = (got.float() - want.float()).abs().max().item()
+            check(torch.equal(got, want),
+                  f"zero-padded residual_block {shape} -> {c_out or shape[-1]}"
+                  f" {dtype} add={residual}{' debug' if checked else ''}: "
+                  f"kernel != plain (max |diff| {err})")
+            done += 1
+    # Without the table the wrapper computes it on the spot: the same bits.
+    x, pf, tr = block_case(zrng, (8, 28, 28, 128), dev, torch.bfloat16, False)
+    p = BConv2DParams(channels_in=128, padding=Padding.SAME, pad_value=0)
+    check(torch.equal(binary_residual_block(x, pf, tr, p),
+                      binary_residual_block_plain(x, pf, tr, p)),
+          "zero-padded residual_block without tap_delta != plain")
+    print(f"[compare] zero-padded residual_block{' (debug build)' * checked}:"
+          f" {done} cases equal ({TOLERANCE}): Bi-RealNet's "
+          f"{len(BIREAL_BLOCKS)} stride-1 shapes at batches "
+          f"{ZERO_PAD_BATCHES} in bfloat16 and float32 with and without the "
+          f"add, {RAGGED} and {ODD}, C != C_out", flush=True)
+    return done
+
+
+def zero_pad_phase(dev, card):
+    """``--zero-pad-only``: the comparisons in both builds, QuickNet's
+    one-padded blocks still equal, a debug check tripped on a zero-padded
+    call, the times at Bi-RealNet's b128 shapes and Bi-RealNet-18 b128
+    through ``Interpreter``."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.core.reference import (
+        zero_padding_tap_delta)
+    from compute_engine_tpu_torch.kernels import debug_checks, select
+    from compute_engine_tpu_torch.kernels.bgemm import bgemm_plain
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+    from compute_engine_tpu_torch.models import (convert_model, get_model,
+                                                 init_model, packed_apply)
+    from compute_engine_tpu_torch.runtime import Interpreter
+
+    zrng = np.random.default_rng(17)
+    zero_pad_compare(zrng, dev)
+    zero_pad_compare(zrng, dev, checked=True)
+    for shape in QUICKNET_BLOCKS:
+        p = BConv2DParams(channels_in=shape[-1], padding=Padding.SAME,
+                          pad_value=1)
+        x, pf, tr = block_case(zrng, shape, dev, torch.bfloat16, False)
+        check(torch.equal(binary_residual_block(x, pf, tr, p),
+                          binary_residual_block_plain(x, pf, tr, p)),
+              f"one-padded residual_block {shape}: kernel != plain")
+    print(f"[compare] one-padded residual_block at the QuickNet shapes: "
+          f"equal ({TOLERANCE})", flush=True)
+    ones, pf, tr = block_case(zrng, (4, 7, 7, 64), dev, torch.bfloat16, True)
+    ones = torch.ones_like(ones)
+    pf = torch.zeros_like(pf)
+    p = BConv2DParams(channels_in=64, padding=Padding.SAME, pad_value=0)
+    with debug_checks():
+        trip = expect_trip(lambda: binary_residual_block(
+            ones, pf, tr, p, _debug_k=9 * 64 - 32), "one-padding")
+    print(f"[compare] zero-padded debug build tripped on purpose: {trip}",
+          flush=True)
+
+    # Times at batch 128, all by CUDA-graph replay: the zero-padded block
+    # beside the one-padded one at the same shape (both with the add), and
+    # the zero-padded lowerings it replaces, as the autotuner runs them.
+    zero_ms = one_ms = 0.0
+    rows = []
+    for (h, w, c), count in zip(BIREAL_BLOCKS, BIREAL_BLOCK_COUNTS):
+        shape = (128, h, w, c)
+        x, pf, tr = block_case(zrng, shape, dev, torch.bfloat16, False)
+        pz = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=0)
+        p1 = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
+        delta = zero_padding_tap_delta(pf, pz)
+        tz = time_ms(lambda: binary_residual_block(x, pf, tr, pz,
+                                                   tap_delta=delta), reps=50)
+        t1 = time_ms(lambda: binary_residual_block(x, pf, tr, p1), reps=50)
+        rivals = select.autotune_bconv2d(
+            [dict(h=h, w=w, c_in=c, c_out=c, fh=3, pad_value=0)], batch=128,
+            update_table=False, candidates={"float/bgemm", "float/mxu"},
+            device=dev)
+        (per,) = rivals.values()
+        rival = {k: v * 1e3 for (_, k), v in per.items()}
+        zero_ms += count * tz
+        one_ms += count * t1
+        rows.append({"shape": list(shape), "zero_pad_ms": tz,
+                     "one_pad_ms": t1, **{f"{k}_ms": v
+                                          for k, v in rival.items()}})
+        print(f"[zero-pad-time] {'x'.join(map(str, shape))} bf16 with the "
+              f"add: zero-padded block {tz:.4f} ms, one-padded block "
+              f"{t1:.4f} ms, " + ", ".join(f"{k} {v:.4f} ms"
+                                           for k, v in rival.items())
+              + f" [{card}]", flush=True)
+    quicknet_ms = sum(BLOCKS_PER_SHAPE * time_block(zrng, s, dev, False)["ms"]
+                      for s in QUICKNET_BLOCKS)
+    print(f"[zero-pad-time] Bi-RealNet-18's 13 stride-1 blocks per b128 "
+          f"forward: zero-padded {zero_ms:.4f} ms, one-padded at the same "
+          f"shapes {one_ms:.4f} ms; QuickNet's 16 one-padded blocks "
+          f"{quicknet_ms:.4f} ms per forward [{card}]", flush=True)
+
+    # Bi-RealNet-18 b128 through Interpreter: the launches the committed
+    # table gives, logits equal to the forward through the plain versions.
+    spec = get_model("birealnet18")
+    layers = convert_model(spec, init_model(spec, seed=0, randomize_bn=True))
+    x = torch.from_numpy(zrng.normal(0, 1, (128, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    interp = Interpreter(spec, layers, output_mode="logits", device=dev)
+    interp(x)
+    reset_launches()
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block as block)
+    block.zero_pad_launches = 0
+    got = interp(x)
+    launches = launch_counts()
+    want_launches = expected_launches("birealnet18", 128)
+    check(launches == want_launches, f"Bi-RealNet-18 b128 launches "
+          f"{launches}, expected {want_launches}")
+    check(block.zero_pad_launches == launches[0], "zero-padded launches "
+          f"{block.zero_pad_launches} of {launches[0]} block launches")
+    plain = packed_apply(spec, interp.layers, x, return_logits=True,
+                         device=dev, residual_block=binary_residual_block_plain,
+                         gemm=bgemm_plain)
+    check(torch.equal(got, plain.to(got.dtype)),
+          "Bi-RealNet-18 b128 logits != the plain versions' forward "
+          f"(max |diff| {(got.float() - plain.float()).abs().max().item()})")
+    print(f"[zero-pad] Bi-RealNet-18 b128 Interpreter: (block, bgemm, "
+          f"split-K) launches {launches} as the table predicts, "
+          f"{block.zero_pad_launches} zero-padded; logits equal to the plain "
+          f"versions' forward ({TOLERANCE}) [{card}]", flush=True)
+    return {"birealnet_blocks": rows, "birealnet_zero_pad_ms": zero_ms,
+            "birealnet_one_pad_ms": one_ms, "quicknet_blocks_ms": quicknet_ms}
 
 
 def selection_phase(dev, card):
@@ -2469,6 +2650,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     if "--select-only" in args:
         selection_phase(dev, card)
         return 0
+    if "--zero-pad-only" in args:
+        print(json.dumps({"zero_pad": zero_pad_phase(dev, card)}))
+        return 0
     if "--train-only" in args:
         models = TRAIN_MODELS
         if "--models" in args:
@@ -2541,6 +2725,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         print(f"[compare] residual_block {'x'.join(map(str, shape))} -> "
               f"{c_out} channels bfloat16 no-residual: equal ({TOLERANCE})",
               flush=True)
+    zero_pad_compare(np.random.default_rng(17), dev)
 
     gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0, "bgemm_int8": 0.0}
     gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})

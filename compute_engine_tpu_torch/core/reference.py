@@ -12,7 +12,9 @@ through an integer accumulator correction:
                      (binary_zero_point - popcount(filter tap))
 
 since an out-of-image tap contributes ``binary_zero_point`` under zero
-padding and ``popcount(0 ^ filter word)`` under one padding.
+padding and ``popcount(0 ^ filter word)`` under one padding. The term of one
+(output channel, tap) is ``zero_padding_tap_delta``; it depends on the filter
+alone, so the model runtime computes it once per layer.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from .transforms import (OutputTransform, apply_output_transform_bitpacked,
 from .types import Padding, popcount, xor_popcount
 
 __all__ = ["bconv2d_reference", "extract_packed_patches",
-           "zero_padding_accum_correction", "outside_tap_mask",
+           "zero_padding_accum_correction", "zero_padding_tap_delta",
+           "outside_tap_mask",
            "outside_tap_mask_t", "apply_output_kind"]
 
 
@@ -79,6 +82,19 @@ def outside_tap_mask_t(in_h, in_w, out_h, out_w, filter_h, filter_w, stride,
     return ~((in_y >= 0) & (in_y < in_h) & (in_x >= 0) & (in_x < in_w))
 
 
+def zero_padding_tap_delta(packed_filter, params: BConv2DParams):
+    """(O, FH * FW) int32: ``binary_zero_point - popcount(filter tap)``, what
+    one out-of-image tap adds to an output channel's accumulator under zero
+    padding, taps in row-major order.
+
+    Args:
+      packed_filter: (O, FH, FW, Cpg) int32 words.
+    """
+    tap_pop = popcount(packed_filter).sum(dim=-1, dtype=torch.int32)
+    delta = params.binary_zero_point - tap_pop
+    return delta.reshape(delta.shape[0], -1)
+
+
 def zero_padding_accum_correction(packed_filter, params: BConv2DParams,
                                   mask):
     """Integer accumulator correction for SAME zero padding.
@@ -91,8 +107,8 @@ def zero_padding_accum_correction(packed_filter, params: BConv2DParams,
     Returns int32 [OH, OW, O]: the sum over outside taps of
     ``binary_zero_point - popcount(filter tap)``.
     """
-    tap_pop = popcount(packed_filter).sum(dim=-1)  # (O, FH, FW)
-    delta = params.binary_zero_point - tap_pop
+    delta = zero_padding_tap_delta(packed_filter, params).reshape(
+        packed_filter.shape[:3])
     if not isinstance(mask, torch.Tensor):
         mask = torch.from_numpy(np.asarray(mask))
     m = mask.to(device=packed_filter.device, dtype=torch.int64)

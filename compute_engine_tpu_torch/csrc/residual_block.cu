@@ -1,7 +1,8 @@
 // Fused binary residual block for Hopper (sm_90a):
 //   out = x + cast(clip(2 * acc, cmin, cmax) * mul + bias)
-// where acc is the xor-popcount accumulator of the 3x3, stride-1, one-padded
-// binary convolution of sign(x) (sign(0) = +1) with a bitpacked filter.
+// where acc is the xor-popcount accumulator of the 3x3, stride-1, SAME
+// binary convolution of sign(x) (sign(0) = +1) with a bitpacked filter,
+// one-padded, or zero-padded where the caller passes a correction table.
 //
 // Replaces: compute_engine_tpu/kernels/residual.py::_block_kernel (a Pallas
 // TPU kernel that signs the tile in VMEM, builds the 9-tap matrix and
@@ -42,6 +43,17 @@
 //    acc = popc(A row) + popc(B column) - 2 T, the popcounts taken by the
 //    same unit against all-ones operands. K is padded to whole MMAs of 8
 //    words with zero words in both operands, which add nothing to any term.
+//  * Zero padding (kZeroPad; core/reference.py): an out-of-image tap adds
+//    binary_zero_point - popcount(filter tap) = delta[co][tap] to acc in
+//    place of the one-padding's popcount(filter tap), so the band, the MMAs
+//    and the popcounts are the one-padded kernel's and the epilogue adds
+//    2 * sum of delta over the outside taps to 2 * acc before the clip. The
+//    taps that fall outside follow from which of the four neighbours of a
+//    position are padding (its pixel is -1): 16 patterns. Each tile stages
+//    the (C_out, 9) int32 delta rows of its channels with its filter rows
+//    and sums them into a [16][64] table, whose row 0 (inside) is zeros.
+//    Odd C needs nothing more: the plain version's odd-depth term gives the
+//    same accumulator.
 //  * Epilogue: __fmul_rn then __fadd_rn (no FMA contraction), round to the
 //    activation type, staged through shared memory so that the store, and
 //    the read of x for the add, are 16 bytes a thread along C; then add x
@@ -51,8 +63,8 @@
 //    accumulators.
 //  * Debug build (-DCE_DEBUG_CHECKS, debug_checks.cuh): the invariant of the
 //    Pallas kernel's pl.debug_check (residual.py:118-120), |t| <= K = 9 C
-//    for the +-1 conv t of every output channel < C_out, as a bit of an
-//    error word. The default build compiles none of it.
+//    for the +-1 conv t of every output channel < C_out (the zero-padded t
+//    too), as a bit of an error word. The default build compiles none of it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,6 +83,9 @@ constexpr int kStageStride = kBN + 8;  // staging row, in elements
 constexpr int kSignLoads = 4;    // 16-byte loads a thread has in flight when
 constexpr int kStoreLoads = 4;   // it signs the band / reads x for the add
 constexpr int kMaxDevices = 64;  // cards a process may launch on
+constexpr int kTaps = 9;
+constexpr int kPatterns = 16;    // outside above | below << 1 | left << 2 |
+                                 // right << 3
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -185,12 +200,21 @@ __device__ __forceinline__ int pixel_of(const Shape& s, int p) {
   return (n * s.H + (yp - 1)) * s.W + (xp - 1);
 }
 
-template <typename T, bool kResidual, int WARPS>
+// Shared-memory words of the zero-padded form, after the pixel table: the
+// correction of each (pattern, channel of the tile) and the tile's delta
+// rows.
+template <bool kZeroPad>
+__host__ __device__ constexpr int zero_pad_words() {
+  return kZeroPad ? kPatterns * kBN + kBN * kTaps : 0;
+}
+
+template <typename T, bool kResidual, bool kZeroPad, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS, kMinWarps / WARPS)
 residual_block_kernel(const T* __restrict__ x,
                       const uint32_t* __restrict__ filt,
                       const float* __restrict__ mul,
-                      const float* __restrict__ bias, T* __restrict__ out,
+                      const float* __restrict__ bias,
+                      const int* __restrict__ delta, T* __restrict__ out,
                       Shape s, int tiles_per_block, int cmin, int cmax,
                       int vec_x, int vec_f, int vec_out) {
   constexpr int kThreads = 32 * WARPS, BM = 16 * kMT * WARPS;
@@ -216,6 +240,10 @@ residual_block_kernel(const T* __restrict__ x,
   int* koff = reinterpret_cast<int*>(sa + in_rows * s.CWs);  // [KWpad]
   int* col_pop = koff + s.KWpad;                             // [kBN]
   int* pixel = col_pop + kBN;  // [in_rows] pixel of each band position, or -1
+  // Zero padding only: [kPatterns][kBN], 8-byte aligned (every region
+  // before it is an even number of words); [kBN][kTaps].
+  int* corr = pixel + in_rows;
+  int* sdelta = corr + kPatterns * kBN;
 
   // The filter rows of a channel tile, as they lie in memory.
   auto load_filter = [&](int tile) {
@@ -237,6 +265,14 @@ residual_block_kernel(const T* __restrict__ x,
                          filt + (size_t)(co0 + r) * s.KW + k);
         else
           sf[r * s.KWs + k] = 0u;
+      }
+    }
+    if (kZeroPad) {  // the tile's delta rows lie one after the other
+      for (int i = tid; i < kBN * kTaps; i += kThreads) {
+        if (co0 + i / kTaps < s.CO)
+          ce::cp_async_4(sdelta + i, delta + (size_t)co0 * kTaps + i);
+        else
+          sdelta[i] = 0;
       }
     }
     ce::cp_async_commit();
@@ -337,9 +373,44 @@ residual_block_kernel(const T* __restrict__ x,
         col_pop[8 * (warp * NB + j) + 2 * t + 1] = pb[j][1];
       }
     }
-    __syncthreads();  // column popcounts written; sf no longer read
+    if (kZeroPad) {
+      // 2 * the sum of delta over the taps outside under each pattern.
+      for (int i = tid; i < kPatterns * kBN; i += kThreads) {
+        const int p = i / kBN, col = i % kBN;
+        int sum = 0;
+#pragma unroll
+        for (int tap = 0; tap < kTaps; ++tap) {
+          const int dy = tap / 3, dx = tap % 3;
+          const bool outside = (dy == 0 && (p & 1)) || (dy == 2 && (p & 2)) ||
+                               (dx == 0 && (p & 4)) || (dx == 2 && (p & 8));
+          sum += outside ? sdelta[col * kTaps + tap] : 0;
+        }
+        corr[i] = 2 * sum;
+      }
+    }
+    __syncthreads();  // column popcounts (and corrections) written; sf and
+                      // sdelta no longer read
     // The next tile's filter arrives while this one is transformed and stored.
     if (tile + 1 < tile_end) load_filter(tile + 1);
+
+    // Zero padding: the row of the correction table of each of this
+    // thread's positions. Output m of the block has tap (0, 0) at band row
+    // m; its taps (0, 1), (2, 1), (1, 0), (1, 2) are the neighbours above,
+    // below, left and right. (A padded position's output is dropped.)
+    int zrow[kMT][2] = {};
+    if (kZeroPad) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int* nb = pixel + warp * 16 * kMT + 16 * i + g + 8 * h;
+          zrow[i][h] = kBN * ((nb[1] < 0 ? 1 : 0) |
+                              (nb[2 * s.WP + 1] < 0 ? 2 : 0) |
+                              (nb[s.WP] < 0 ? 4 : 0) |
+                              (nb[s.WP + 2] < 0 ? 8 : 0));
+        }
+      }
+    }
 
     // Transform the fragment (channels 2t, 2t + 1 of rows g, g + 8 of every
     // MMA tile) and stage it in the activation type.
@@ -356,24 +427,32 @@ residual_block_kernel(const T* __restrict__ x,
       for (int i = 0; i < kMT; ++i) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          // 2 * acc = 2 popc(row) + 2 popc(column) - 4 T
+          const int row = warp * 16 * kMT + 16 * i + g + 8 * h;
+          // 2 * acc = 2 popc(row) + 2 popc(column) - 4 T (+ the correction)
+          int z0 = 0, z1 = 0;
+          if (kZeroPad) {
+            const int2 z =
+                *reinterpret_cast<const int2*>(corr + zrow[i][h] + col);
+            z0 = z.x;
+            z1 = z.y;
+          }
           const int rp = 2 * pa[i][2 * h];
           const int a0 =
-              min(max(rp + cp0 - 4 * acc[i][j][2 * h], cmin), cmax);
+              min(max(rp + cp0 - 4 * acc[i][j][2 * h] + z0, cmin), cmax);
           const int a1 =
-              min(max(rp + cp1 - 4 * acc[i][j][2 * h + 1], cmin), cmax);
+              min(max(rp + cp1 - 4 * acc[i][j][2 * h + 1] + z1, cmin), cmax);
 #ifdef CE_DEBUG_CHECKS
-          // xor-popcount of the 9 C real bits: (2 acc) / 2 before the clip
+          // the accumulator over the 9 C taps: (2 acc) / 2 before the clip
           if (co < s.CO)
-            ce_debug::check_bound((rp + cp0) / 2 - 2 * acc[i][j][2 * h],
-                                  9 * s.C, ce_debug::kResidualBound);
+            ce_debug::check_bound(
+                (rp + cp0 + z0) / 2 - 2 * acc[i][j][2 * h], 9 * s.C,
+                ce_debug::kResidualBound);
           if (co + 1 < s.CO)
-            ce_debug::check_bound((rp + cp1) / 2 - 2 * acc[i][j][2 * h + 1],
-                                  9 * s.C, ce_debug::kResidualBound);
+            ce_debug::check_bound(
+                (rp + cp1 + z1) / 2 - 2 * acc[i][j][2 * h + 1], 9 * s.C,
+                ce_debug::kResidualBound);
 #endif
-          store2(stage +
-                     (warp * 16 * kMT + 16 * i + g + 8 * h) * kStageStride +
-                     col,
+          store2(stage + row * kStageStride + col,
                  __fadd_rn(__fmul_rn((float)a0, m0), b0),
                  __fadd_rn(__fmul_rn((float)a1, m1), b1));
         }
@@ -431,22 +510,25 @@ residual_block_kernel(const T* __restrict__ x,
 }
 
 // Shared memory of a block, in bytes: filter tile, staged outputs, band,
-// offset table, column popcounts, pixel of each band position.
-template <typename T, int WARPS>
+// offset table, column popcounts, pixel of each band position, and the
+// zero-padded form's tables.
+template <typename T, bool kZeroPad, int WARPS>
 size_t shared_bytes(const Shape& s) {
   constexpr int BM = 16 * kMT * WARPS;
   const int in_rows = BM + 2 * s.WP + 2;
   return sizeof(uint32_t) * ((size_t)kBN * s.KWs + (size_t)in_rows * s.CWs +
-                             s.KWpad + kBN + in_rows) +
+                             s.KWpad + kBN + in_rows +
+                             zero_pad_words<kZeroPad>()) +
       sizeof(T) * (size_t)BM * kStageStride;
 }
 
-template <typename T, bool kResidual, int WARPS>
+template <typename T, bool kResidual, bool kZeroPad, int WARPS>
 int launch(const void* x, const void* filt, const void* mul, const void* bias,
-           void* out, const Shape& s, int tiles_per_block, int plan_blocks,
-           int plan_smem_bytes, int cmin, int cmax, cudaStream_t stream) {
+           const void* delta, void* out, const Shape& s, int tiles_per_block,
+           int plan_blocks, int plan_smem_bytes, int cmin, int cmax,
+           cudaStream_t stream) {
   constexpr int BM = 16 * kMT * WARPS;
-  const size_t smem = shared_bytes<T, WARPS>(s);
+  const size_t smem = shared_bytes<T, kZeroPad, WARPS>(s);
   const int n_tiles = (s.CO + kBN - 1) / kBN;
   const long long blocks = (long long)((s.total + BM - 1) / BM) *
       ((n_tiles + tiles_per_block - 1) / tiles_per_block);
@@ -462,7 +544,7 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
   const int vec_f = s.CW % 4 == 0 && aligned(filt);
   const int vec_out = s.CO % 8 == 0 && aligned(out) && (!kResidual || vec_x);
 
-  auto kernel = residual_block_kernel<T, kResidual, WARPS>;
+  auto kernel = residual_block_kernel<T, kResidual, kZeroPad, WARPS>;
   // Raised once per instantiation and device: the attribute is the current
   // device's.
   static size_t allowed[kMaxDevices] = {};
@@ -480,36 +562,59 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
   kernel<<<grid, 32 * WARPS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(filt),
       static_cast<const float*>(mul), static_cast<const float*>(bias),
-      static_cast<T*>(out), s, tiles_per_block, cmin, cmax, vec_x, vec_f,
-      vec_out);
+      static_cast<const int*>(delta), static_cast<T*>(out), s,
+      tiles_per_block, cmin, cmax, vec_x, vec_f, vec_out);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kResidual>
+template <typename T, bool kResidual, bool kZeroPad>
 int launch_warps(int warps, const void* x, const void* filt, const void* mul,
-                 const void* bias, void* out, const Shape& s, int tiles,
-                 int blocks, int smem_bytes, int cmin, int cmax,
-                 cudaStream_t stream) {
+                 const void* bias, const void* delta, void* out,
+                 const Shape& s, int tiles, int blocks, int smem_bytes,
+                 int cmin, int cmax, cudaStream_t stream) {
   if (warps == 8)
-    return launch<T, kResidual, 8>(x, filt, mul, bias, out, s, tiles, blocks,
-                                   smem_bytes, cmin, cmax, stream);
+    return launch<T, kResidual, kZeroPad, 8>(x, filt, mul, bias, delta, out, s,
+                                             tiles, blocks, smem_bytes, cmin,
+                                             cmax, stream);
   if (warps == 4)
-    return launch<T, kResidual, 4>(x, filt, mul, bias, out, s, tiles, blocks,
-                                   smem_bytes, cmin, cmax, stream);
-  return launch<T, kResidual, 2>(x, filt, mul, bias, out, s, tiles, blocks,
-                                 smem_bytes, cmin, cmax, stream);
+    return launch<T, kResidual, kZeroPad, 4>(x, filt, mul, bias, delta, out, s,
+                                             tiles, blocks, smem_bytes, cmin,
+                                             cmax, stream);
+  return launch<T, kResidual, kZeroPad, 2>(x, filt, mul, bias, delta, out, s,
+                                           tiles, blocks, smem_bytes, cmin,
+                                           cmax, stream);
+}
+
+template <typename T>
+int launch_form(bool residual, bool zero_pad, int warps, const void* x,
+                const void* filt, const void* mul, const void* bias,
+                const void* delta, void* out, const Shape& s, int tiles,
+                int blocks, int smem_bytes, int cmin, int cmax,
+                cudaStream_t stream) {
+  auto run = [&](auto launcher) {
+    return launcher(warps, x, filt, mul, bias, delta, out, s, tiles, blocks,
+                    smem_bytes, cmin, cmax, stream);
+  };
+  if (zero_pad)
+    return residual ? run(launch_warps<T, true, true>)
+                    : run(launch_warps<T, false, true>);
+  return residual ? run(launch_warps<T, true, false>)
+                  : run(launch_warps<T, false, false>);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The launch plan is the caller's
-// (kernels/residual.py::plan_residual_block): warps, 2, 4 or 8 a block, 32
-// output positions each; tiles_per_block, the tiles of 64 output channels
-// that a block computes from its band; and the number of blocks and the
-// shared-memory bytes that follow from them, which must be what this kernel
-// needs. Returns a cudaError_t value (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. tap_delta: null for one padding; for
+// zero padding the (c_out, 9) int32 table binary_zero_point - popcount of
+// each filter tap (core/reference.py::zero_padding_tap_delta). The launch
+// plan is the caller's (kernels/residual.py::plan_residual_block): warps, 2,
+// 4 or 8 a block, 32 output positions each; tiles_per_block, the tiles of 64
+// output channels that a block computes from its band; and the number of
+// blocks and the shared-memory bytes that follow from them, which must be
+// what this kernel needs. Returns a cudaError_t value (0 = success).
 extern "C" int ce_residual_block(const void* x, const void* filt,
-                                 const void* mul, const void* bias, void* out,
+                                 const void* mul, const void* bias,
+                                 const void* tap_delta, void* out,
                                  int n, int h, int w, int c, int c_out,
                                  int clamp_min, int clamp_max,
                                  int has_residual, int dtype, int warps,
@@ -536,15 +641,10 @@ extern "C" int ce_residual_block(const void* x, const void* filt,
   s.CWs = s.CW % 8 == 0 ? s.CW + 4 : s.CW;
   s.groups_magic = (uint32_t)(0x100000000ULL / (4 * s.CW)) + 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto launcher) {
-    return launcher(warps, x, filt, mul, bias, out, s, tiles_per_block, blocks,
-                    smem_bytes, clamp_min, clamp_max, st);
-  };
-  if (dtype == 0)
-    return has_residual ? run(launch_warps<float, true>)
-                        : run(launch_warps<float, false>);
-  return has_residual ? run(launch_warps<__nv_bfloat16, true>)
-                      : run(launch_warps<__nv_bfloat16, false>);
+  auto form = dtype == 0 ? launch_form<float> : launch_form<__nv_bfloat16>;
+  return form(has_residual != 0, tap_delta != nullptr, warps, x, filt, mul,
+              bias, tap_delta, out, s, tiles_per_block, blocks, smem_bytes,
+              clamp_min, clamp_max, st);
 }
 
 extern "C" const char* ce_error_string(int code) {

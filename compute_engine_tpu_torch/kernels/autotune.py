@@ -18,7 +18,12 @@ writes the table (by default the package's ``kernel_table_h100.json``) with
 its ``_meta`` (the card's name and power limit, the software, the batches
 and every measured time), checkpointing after every cell. Without
 ``--fresh`` it starts from the committed table and measures only what that
-misses.
+misses. ``--geometry G`` (e.g. ``s1/zero``, after a new candidate appeared
+at it) takes the committed table's entries at G out, exact and bucket, and
+measures them again: every other entry, and every other field and time of
+``_meta``, is written back as it was; the new times replace their rows of
+``raw_ms`` and ``_meta["remeasured"][G]`` names the card and the software
+that measured them.
 """
 
 from __future__ import annotations
@@ -125,16 +130,61 @@ def _meta(raw):
             "raw_ms": raw}
 
 
+def _cell_geometry(cell):
+    return _keys(cell[0], cell[1], cell[3], cell[4])[2]
+
+
+def forget_geometry(geo, table=None) -> int:
+    """Take every entry at geometry ``geo`` out of ``table`` (the process
+    table by default), so that ``plan`` measures it again; returns how many
+    were taken out."""
+    table = select.kernel_table() if table is None else table
+    gone = 0
+    for key in list(table):
+        if table[key].pop(geo, None) is not None:
+            gone += 1
+        if not table[key]:
+            del table[key]
+    return gone
+
+
+def remeasured_meta(old, raw, geo, now):
+    """The committed ``_meta`` with the times of ``raw`` in its ``raw_ms``
+    (a row of the same cell replaced) and ``now`` (``_meta``'s card and
+    software fields, from this run) under ``remeasured[geo]``."""
+    meta = json.loads(json.dumps(old))
+    meta["raw_ms"].update(raw)
+    meta.setdefault("remeasured", {})[geo] = {
+        k: now[k] for k in ("card", "torch", "cuda", "timer", "written_by")}
+    return meta
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--out", default=select._TABLE_PATH)
     p.add_argument("--fresh", action="store_true",
                    help="start from an empty table, not the committed one")
+    p.add_argument("--geometry",
+                   help="measure the committed entries at this geometry "
+                        "again (e.g. s1/zero), keeping every other one")
     args = p.parse_args(argv)
     select.reset_table()
     if args.fresh:
         select.kernel_table().clear()
+    if args.geometry:
+        with open(select._TABLE_PATH) as f:
+            committed = json.load(f)["_meta"]
+        print(f"took {forget_geometry(args.geometry)} entries at "
+              f"{args.geometry} out", flush=True)
     cells = plan()
+    if args.geometry:
+        cells = [c for c in cells if _cell_geometry(c) == args.geometry]
+
+    def meta(raw):
+        if args.geometry:
+            return remeasured_meta(committed, raw, args.geometry, _meta({}))
+        return _meta(raw)
+
     print(f"{len(cells)} cells to measure", flush=True)
     raw = {}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -147,9 +197,9 @@ def main(argv=None):
         print(f"[{i + 1}/{len(cells)}] {label}: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())
               + f" -> {best} ({time.perf_counter() - t0:.1f} s)", flush=True)
-        select.save_table(args.out, _meta(raw))
+        select.save_table(args.out, meta(raw))
     if not cells:
-        select.save_table(args.out, _meta(raw))
+        select.save_table(args.out, meta(raw))
     print(f"wrote {args.out} ({len(select.kernel_table())} entries)")
 
 

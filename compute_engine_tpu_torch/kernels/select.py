@@ -5,8 +5,8 @@ whole lowerings of one layer, each exact:
 
   float input (the model runtime's stream between layers):
     "residual"  the fused block kernel (``kernels/residual.py``), where it
-                applies: 3x3, stride 1, undilated, ungrouped, SAME one
-                padding; fused with the residual add when the layer's
+                applies: 3x3, stride 1, undilated, ungrouped, SAME one or
+                zero padding; fused with the residual add when the layer's
                 consumer is that add
     "bgemm"     quantize (pack), then the binary GEMM kernel
     "mxu"       sign to +-1 int8 and the exact integer conv
@@ -212,20 +212,24 @@ def _heuristic(domain: str, out_kind: str, residual_ok: bool,
     (``kernel_table_h100.json``'s ``raw_ms``; PERF.md §6, rows named
     below):
 
-      * float domain, the block kernel applies: "residual". It won at every
-        measured shape but one (DenseNet's 14x14x1024 -> 64 at batch 1,
-        within 0.005 ms), at batch 128 by 5 to 25 times the next lowering
-        (PERF.md row "float, 3x3 one-padded, stride 1").
+      * float domain, the block kernel applies (3x3, stride 1, one or zero
+        padding): "residual". One-padded, it won at every measured shape
+        but one (DenseNet's 14x14x1024 -> 64 at batch 1, within 0.005 ms),
+        at batch 128 by 5 to 25 times the next lowering (PERF.md row
+        "float, 3x3 one-padded, stride 1"); zero-padded, at every one of
+        Bi-RealNet's convs at batch 1, 8 and 128, at batch 128 by 5 to 15
+        times (0.093 against 1.36 ms for the GEMM at 56x56x64, 0.049
+        against 0.242 for "mxu" at 7x7x512; ``raw_ms``).
       * float domain, zero padding, stride 2: "mxu", which won at every
         measured one (Bi-RealNet's transitions; 0.81 against 0.93 ms for
         the GEMM at 56x56x64 -> 128, batch 128; PERF.md row "float,
         zero-padded, stride 2").
-      * float domain, zero padding, stride 1: "bgemm" from 2**15 GEMM rows
-        up, "mxu" below (Bi-RealNet's convs; PERF.md row "float,
-        zero-padded, stride 1": the GEMM won at 56x56 and 28x28, batch 128,
-        1.32 and 0.72 ms against 1.73 and 0.88; "mxu" won every batch-1 and
-        batch-8 cell and 7x7 at batch 128; at 14x14x256, batch 128, 25088
-        rows, "mxu" is 7% behind).
+      * float domain, zero padding, stride 1 where the block kernel does
+        not apply: "bgemm" from 2**15 GEMM rows up, "mxu" below (measured
+        on Bi-RealNet's 3x3 convs before the block kernel took zero
+        padding: the GEMM won at 56x56 and 28x28, batch 128, 1.32 and 0.72
+        ms against 1.73 and 0.88; "mxu" won every batch-1 and batch-8 cell
+        and 7x7 at batch 128).
       * everywhere else: "bgemm", which won at every one-padded stride-2
         conv, the 5x5 conv, every binary dense and every packed-domain
         shape (PERF.md rows "float, 3x3 one-padded, stride 2", "float, 5x5
@@ -461,6 +465,7 @@ def autotune_bconv2d(shapes, *, batch=8, out_kind="float", iters=20,
 
     from ..core.bitpack import bitpack, bitunpack
     from ..core.params import BConv2DParams
+    from ..core.reference import zero_padding_tap_delta
     from ..core.transforms import (OutputTransform, compute_output_thresholds,
                                    fuse_output_transform)
     from ..core.types import Padding
@@ -501,8 +506,11 @@ def autotune_bconv2d(shapes, *, batch=8, out_kind="float", iters=20,
         wp = bitpack(torch.from_numpy(rng.choice(
             [-1.0, 1.0], size=(c_out, fh, fw, c_in)).astype(np.float32))
             .to(device))
-        # The +-1 filter unpacked once, as the model runtime holds it.
+        # The +-1 filter unpacked once, and zero padding's correction table
+        # made once, as the model runtime holds them.
         w_pm1 = bitunpack(wp, c_in, dtype=torch.int8).permute(1, 2, 3, 0)
+        delta = (zero_padding_tap_delta(wp, params)
+                 if params.pad_value == 0 else None)
         block = (out_kind == "float" and residual_applies(
             "float", fh=fh, fw=fw, c_in=c_in, stride=d["stride"],
             padding=d["padding"], pad_value=d["pad_value"]))
@@ -527,7 +535,8 @@ def autotune_bconv2d(shapes, *, batch=8, out_kind="float", iters=20,
         if block:
             runners[("float", "residual")] = lambda xf, wp: (
                 binary_residual_block(xf, wp, tr, params, has_residual=fused,
-                                      unpacked_filter=w_pm1))
+                                      unpacked_filter=w_pm1,
+                                      tap_delta=delta))
         runners[("float", "mxu")] = lambda xf, wp: stored(
             bconv2d_mxu_float_in(xf, wp, tr, params, out_kind,
                                  unpacked_filter=w_pm1), xf)

@@ -37,6 +37,7 @@ import torch
 
 from ..core.bitpack import bitpack_np, bitunpack
 from ..core.params import BConv2DParams, tflite_same_padding
+from ..core.reference import zero_padding_tap_delta
 from ..core.transforms import (OutputTransform, compute_output_thresholds,
                                fuse_output_transform)
 from ..core.types import Activation, Padding, round_half_away
@@ -539,11 +540,11 @@ class _DeferredBConv:
     """
 
     def __init__(self, x, packed_filter, transform, params, block,
-                 unpacked_filter):
+                 unpacked_filter, tap_delta):
         self.x = x
         self._args = (packed_filter, transform, params)
         self._block = block
-        self._unpacked = unpacked_filter
+        self._kw = dict(unpacked_filter=unpacked_filter, tap_delta=tap_delta)
         self._value = None
         self._fused = None
 
@@ -553,8 +554,7 @@ class _DeferredBConv:
                 self._value = self._fused - self.x.to(self._fused.dtype)
             else:
                 self._value = self._block(self.x, *self._args,
-                                          has_residual=False,
-                                          unpacked_filter=self._unpacked)
+                                          has_residual=False, **self._kw)
         return self._value
 
     def fuses_with(self, other):
@@ -564,7 +564,7 @@ class _DeferredBConv:
     def fused_add(self):
         if self._fused is None:
             self._fused = self._block(self.x, *self._args, has_residual=True,
-                                      unpacked_filter=self._unpacked)
+                                      **self._kw)
         return self._fused
 
 
@@ -854,12 +854,13 @@ class PackedBuilder(_Base):
         # The block kernel reads bfloat16 or float32 activations only.
         k = lowering(*x.shape[:3], "float", "float", x.is_floating_point())
         if k == "residual":
+            delta = a.get("tap_delta")
             if x.shape[-1] == filters:
                 return _DeferredBConv(x, pf, transform, params,
-                                      self.residual_block, upf)
+                                      self.residual_block, upf, delta)
             return self._store(self.residual_block(
                 x, pf, transform, params, has_residual=False,
-                unpacked_filter=upf))
+                unpacked_filter=upf, tap_delta=delta))
         if k == "s2d":
             y = bconv2d_mxu_s2d(x, pf, transform, params, "float",
                                 unpacked_filter=upf)
@@ -1014,8 +1015,15 @@ def prepare_runtime_arrays(layers):
       bconv:  ``filter_pm1`` (FH, FW, C, O)
       bdense: ``kernel_pm1`` (C, units)
 
-    The plain versions contract these; the CUDA kernel reads the packed
-    words themselves.
+    and, to a SAME zero-padded bconv, ``tap_delta`` (O, FH * FW) int32:
+    what each out-of-image tap adds to each output channel's accumulator
+    (``core.reference.zero_padding_tap_delta``), which the block kernel
+    adds in its epilogue, so that no forward computes it again. It derives
+    from ``packed_filter``: whoever changes the filter in place changes it
+    too.
+
+    The plain versions contract the +-1 filters; the CUDA kernel reads the
+    packed words themselves.
     """
     def unpack(words, channels):
         w = torch.from_numpy(np.array(words, order="C").view(np.int32))
@@ -1031,6 +1039,14 @@ def prepare_runtime_arrays(layers):
         elif a.get("kind") == "bdense" and "kernel_pm1" not in a:
             a["kernel_pm1"] = np.ascontiguousarray(
                 unpack(a["packed_kernel"], int(a["channels_in"])).T)
+        if (a.get("kind") == "bconv" and "tap_delta" not in a
+                and a.get("padding", "SAME") == "SAME"
+                and int(a["pad_value"]) == 0):
+            words = torch.from_numpy(
+                np.array(a["packed_filter"], order="C").view(np.int32))
+            a["tap_delta"] = zero_padding_tap_delta(words, BConv2DParams(
+                channels_in=int(a["channels_in"]),
+                groups=int(a.get("groups", 1)), pad_value=0)).numpy()
         out[name] = a
     return out
 

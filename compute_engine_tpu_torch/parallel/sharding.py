@@ -40,6 +40,9 @@ def _layer_specs(layer):
             # pre-unpacked +-1 filter (prepare_runtime_arrays): HWIO layout,
             # same output-channel TP split on the last axis.
             "filter_pm1": (None, None, None, "model"),
+            # zero padding's (O, 9) correction (prepare_runtime_arrays):
+            # one row per output channel, split as the filter is.
+            "tap_delta": ("model", None),
             "multiplier": ("model",),
             "bias": ("model",),
         }

@@ -326,3 +326,90 @@ def test_interpreter_from_artifact_path(tmp_path, port_layers, rng):
     a = Interpreter(spec, artifact_path=path, device="cpu").predict(x)
     b = Interpreter(spec, port_layers, device="cpu").predict(x)
     np.testing.assert_array_equal(a, b)
+
+
+# -- Bi-RealNet-18's zero-padded convs on the block kernel ---------------------
+
+
+@pytest.fixture(scope="module")
+def bireal():
+    from compute_engine_tpu.models import get_model as jget_model
+
+    jspec = jget_model("birealnet18")
+    return jspec, get_model("birealnet18"), jconvert(
+        jspec, jinit(jspec, seed=1, randomize_bn=True))
+
+
+def test_birealnet_auto_takes_the_block_and_matches_jax(bireal, rng):
+    """Full-size Bi-RealNet-18 under kernel="auto" at batch 1: its 13
+    zero-padded stride-1 convs go through the block entry (the plain
+    version on the CPU) with the runtime's correction table, and the
+    probabilities stay within C.5's tolerance of JAX's forward, top-1
+    equal."""
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block_plain)
+
+    from _torch_parity import FLOAT32_MODEL_TOL, assert_outputs_close
+
+    jspec, spec, layers = bireal
+    calls = []
+
+    def block(x, pf, tr, params, **kw):
+        calls.append((params.pad_value, kw["tap_delta"].shape))
+        return binary_residual_block_plain(x, pf, tr, params, **kw)
+
+    x = rng.normal(0, 1, (1, 224, 224, 3)).astype(np.float32)
+    got = packed_apply(spec, prepare_runtime_arrays(layers), x,
+                       compute_dtype=torch.float32, device="cpu",
+                       residual_block=block)
+    want = japply(jspec, layers, jnp.asarray(x), kernel="mxu",
+                  compute_dtype=jnp.float32)
+    assert [p for p, _ in calls] == [0] * 13
+    assert all(shape[1] == 9 for _, shape in calls)
+    assert_outputs_close(got, want, **FLOAT32_MODEL_TOL)
+
+
+def test_compiled_forward_counts_zero_padded_block_launches(monkeypatch):
+    """Under the card stand-ins (a captured graph, replayed), one Bi-RealNet
+    forward at batch 1 counts 13 block launches, all zero-padded, and no
+    GEMM launch; QuickNet's 16 one-padded launches are as they were. The
+    kernels' launches are stood in for by their plain versions, counted as
+    the wrappers count a launch."""
+    import _torch_card_standins as standins
+
+    from compute_engine_tpu_torch.kernels import bgemm as bgemm_mod
+    from compute_engine_tpu_torch.kernels import counts, residual
+    from compute_engine_tpu_torch.runtime.compiled import CompiledForward
+
+    standins.install(monkeypatch)
+    block_plain, gemm_plain = (residual.binary_residual_block_plain,
+                               bgemm_mod.bgemm_plain)
+
+    def block_launch(x, pf, tr, params, *a, **kw):
+        residual._count_launch(params.pad_value == 0)
+        return block_plain(x, pf, tr, params, *a, **kw)
+
+    def gemm_launch(*a, **kw):
+        counts.count(bgemm_mod.bgemm)
+        return gemm_plain(*a, **kw)
+
+    monkeypatch.setattr(residual, "binary_residual_block_plain",
+                        block_launch)
+    monkeypatch.setattr(bgemm_mod, "bgemm_plain", gemm_launch)
+    block, gemm = residual.binary_residual_block, bgemm_mod.bgemm
+    x = np.random.default_rng(7).normal(0, 1, (1, 224, 224, 3)).astype(
+        np.float32)
+    for name, want in (("birealnet18", (13, 13, 0)), ("quicknet", (16, 0, 0))):
+        spec = get_model(name)
+        interp = Interpreter(spec, convert_model(spec, init_model(spec,
+                                                                  seed=0)),
+                             device="cpu")
+        interp._compiled = CompiledForward(interp._forward,
+                                           torch.device("cpu"))
+        interp(x)  # warms up, captures
+        for fn, attr in ((block, "launches"), (block, "zero_pad_launches"),
+                         (gemm, "launches")):
+            monkeypatch.setattr(fn, attr, 0)
+        interp(x)  # one replay
+        assert (block.launches, block.zero_pad_launches,
+                gemm.launches) == want, name

@@ -201,6 +201,53 @@ def _mini_alexnet(b, x, num_classes=10):
     return b.softmax(x)
 
 
+def _zero_padded_blocks(b, x, num_classes=10):
+    """Two zero-padded residual blocks and a zero-padded conv whose consumer
+    is not its add, as Bi-RealNet's convs are zero-padded."""
+    x = b.conv_bn(x, 64, 3, stride=2, name="stem")
+    x = b.add(x, b.binary_conv_bn(x, 64, 3, pad_value=0, name="block1"))
+    x = b.add(x, b.binary_conv_bn(x, 64, 3, pad_value=0, name="block2"))
+    x = b.binary_conv_bn(x, 128, 3, pad_value=0, name="widen")
+    x = b.global_avg_pool(x)
+    return b.softmax(b.dense(x, num_classes, name="head"))
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 4)])
+def test_sharded_zero_padded_blocks_take_their_slots_correction(mesh_shape):
+    """Each model slot runs the block entry without the add on its share of
+    the output channels, with the rows of zero padding's correction table
+    that belong to its slice of the filter; the forward equals the
+    unsharded one."""
+    from compute_engine_tpu_torch.core.reference import (
+        zero_padding_tap_delta)
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block_plain)
+    from compute_engine_tpu_torch.models.zoo import ModelSpec
+
+    spec = ModelSpec("zero_padded", _zero_padded_blocks, input_size=(16, 16),
+                     num_classes=10)
+    layers = convert_model(spec, init_model(spec, seed=4, randomize_bn=True))
+    x = parity.images(10, 4, size=(16, 16))
+    want = packed_apply(spec, layers, x, compute_dtype=torch.float32,
+                        device="cpu")
+    shares = []
+
+    def block(x, pf, tr, params, **kw):
+        assert torch.equal(kw["tap_delta"], zero_padding_tap_delta(pf, params))
+        shares.append(pf.shape[0])
+        return binary_residual_block_plain(x, pf, tr, params, **kw)
+
+    mesh = make_mesh(mesh_shape, devices=["cpu"] * int(np.prod(mesh_shape)))
+    got = sharded_apply(spec, shard_artifact(prepare_runtime_arrays(layers),
+                                             mesh),
+                        x, mesh, compute_dtype=torch.float32,
+                        residual_block=block)
+    parity.assert_outputs_close(got, want, atol=1e-5)
+    tp = mesh_shape[1]
+    assert sorted(set(shares)) == sorted({64 // tp, 128 // tp})
+    assert len(shares) == 3 * tp * mesh_shape[0]
+
+
 @pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 4)])
 def test_sharded_packed_domain_matches_unsharded(mesh_shape):
     """The packed domain over the model slots: a layer whose slot slices

@@ -94,16 +94,22 @@ def test_table_roundtrip(tmp_path):
 
 
 def test_heuristic_without_a_table():
-    """Where nothing is measured: the block kernel where it applies, "mxu"
-    for a zero-padded float conv at stride 2 or under 2**15 rows, the
-    binary GEMM elsewhere."""
+    """Where nothing is measured: the block kernel where it applies, one or
+    zero padding; for a zero-padded float conv it does not run, "mxu" at
+    stride 2 or under 2**15 rows; the binary GEMM elsewhere."""
     kernel_table().clear()
     assert select_bconv2d_kernel("float", c_in=64, c_out=64, fh=3, fw=3,
                                  m=128 * 56 * 56) == "residual"
     assert select_bconv2d_kernel("float", c_in=64, c_out=64, fh=3, fw=3,
-                                 m=128 * 56 * 56, pad_value=0) == "bgemm"
+                                 m=128 * 56 * 56, pad_value=0) == "residual"
     assert select_bconv2d_kernel("float", c_in=64, c_out=64, fh=3, fw=3,
-                                 m=8 * 56 * 56, pad_value=0) == "mxu"
+                                 m=8 * 56 * 56, pad_value=0) == "residual"
+    assert select_bconv2d_kernel("float", c_in=64, c_out=64, fh=3, fw=3,
+                                 m=128 * 56 * 56, pad_value=0,
+                                 dilation=(2, 2)) == "bgemm"
+    assert select_bconv2d_kernel("float", c_in=64, c_out=64, fh=3, fw=3,
+                                 m=8 * 56 * 56, pad_value=0,
+                                 dilation=(2, 2)) == "mxu"
     assert select_bconv2d_kernel("float", c_in=64, c_out=128, fh=3, fw=3,
                                  m=128 * 28 * 28, stride=(2, 2),
                                  pad_value=0) == "mxu"
@@ -148,11 +154,11 @@ def test_entry_decides_only_its_own_geometry():
     # The bucket tier is held to the geometry too.
     same = dict(c_in=64, c_out=64, fh=3, fw=3, m=128 * 56 * 56)
     kernel_table()[select._bucket_key("float", 64, 64, 9, 128 * 56 * 56,
-                                      "float")] = {"s1/one": "residual"}
-    assert select_bconv2d_kernel("float", **same) == "residual"
+                                      "float")] = {"s1/one": "mxu"}
+    assert select_bconv2d_kernel("float", **same) == "mxu"
     assert measured_entry_tier("float", **same) == "bucket"
     assert measured_entry_tier("float", pad_value=0, **same) == ""
-    assert select_bconv2d_kernel("float", pad_value=0, **same) == "bgemm"
+    assert select_bconv2d_kernel("float", pad_value=0, **same) == "residual"
 
 
 def _stub_times(monkeypatch, times):
@@ -239,6 +245,92 @@ def test_committed_table_names_an_nvidia_card():
     names = {w for by_geo in select._DEFAULT_TABLE.values()
              for w in by_geo.values()}
     assert names <= {"residual", "bgemm", "mxu", "s2d"}, names
+
+
+# sha256 of the committed table's entries other than those at "s1/zero",
+# and of its ``_meta`` without those cells' ``raw_ms`` rows and without
+# ``remeasured``, as ``_kept_digest`` reads them: the table before its
+# "s1/zero" entries were measured again with the zero-padded block kernel
+# among the candidates.
+KEPT_DIGEST = ("1dd662afb6d1235b65f34d0034188b23"
+               "d083311d1ee7a2d98f5b0a66410ea55f")
+
+
+def _zero_s1_row(label):
+    return '"stride":[1,1]' in label and '"pad_value":0' in label
+
+
+def _kept_digest(data):
+    import hashlib
+
+    entries = {k: {g: w for g, w in v.items() if g != "s1/zero"}
+               for k, v in data.items() if not k.startswith("_")}
+    meta = {k: v for k, v in data["_meta"].items()
+            if k not in ("raw_ms", "remeasured")}
+    meta["raw_ms"] = {k: v for k, v in data["_meta"]["raw_ms"].items()
+                      if not _zero_s1_row(k)}
+    return hashlib.sha256(json.dumps([entries, meta],
+                                     sort_keys=True).encode()).hexdigest()
+
+
+def test_committed_table_keeps_every_other_entry():
+    """Only the zero-padded stride-1 entries were measured again: every
+    other entry, every other field of ``_meta`` and every other time are
+    what they were, and each re-measured cell's row names the block kernel
+    and the card that measured it."""
+    data = json.load(open(TABLE))
+    assert _kept_digest(data) == KEPT_DIGEST
+    rows = {k: v for k, v in data["_meta"]["raw_ms"].items()
+            if _zero_s1_row(k)}
+    assert len(rows) == 12
+    assert all("float/residual" in v for v in rows.values())
+    remeasured = data["_meta"]["remeasured"]["s1/zero"]
+    assert remeasured["card"].startswith("NVIDIA")
+
+
+def test_committed_table_runs_birealnets_stride1_convs_on_the_block():
+    """Bi-RealNet-18's 13 zero-padded 3x3 stride-1 convs take the block
+    kernel at batch 128; its three stride-2 convs keep "mxu"."""
+    got = {}
+    for _, r, domain, out_kind in binary_layer_modes(MODELS["birealnet18"],
+                                                     128):
+        kw = select.layer_kwargs(r)
+        got.setdefault((tuple(kw["stride"]), kw["pad_value"]), []).append(
+            select.layer_lowering("auto", r, domain, out_kind))
+    assert got == {((1, 1), 0): ["residual"] * 13, ((2, 2), 0): ["mxu"] * 3}
+
+
+def test_planner_measures_one_geometry_again(monkeypatch, tmp_path):
+    """``autotune --geometry s1/zero`` measures the cells of that geometry
+    only and writes every other entry and every other time back as it
+    was."""
+    cells = []
+
+    def measure(cell, device="cuda", update_table=True):
+        cells.append(cell)
+        kind, r, _, domain, out_kind = cell
+        key, bucket, geo = autotune._keys(kind, r, domain, out_kind)
+        for k in (key, bucket):
+            kernel_table().setdefault(k, {})[geo] = "s2d"
+        return {"float/residual": 2.0, "float/s2d": 1.0}
+
+    monkeypatch.setattr(autotune, "measure", measure)
+    out = tmp_path / "table.json"
+    autotune.main(["--geometry", "s1/zero", "--out", str(out)])
+    assert cells and all(autotune._cell_geometry(c) == "s1/zero"
+                         for c in cells)
+    data, old = json.load(open(out)), json.load(open(TABLE))
+    assert _kept_digest(data) == _kept_digest(old)
+    for k, v in old.items():
+        if not k.startswith("_") and "s1/zero" in v:
+            assert data[k]["s1/zero"] == "s2d"
+    labels = {autotune.cell_label(c) for c in cells}
+    assert labels == {k for k in old["_meta"]["raw_ms"] if _zero_s1_row(k)}
+    assert all(data["_meta"]["raw_ms"][k] == {"float/residual": 2.0,
+                                              "float/s2d": 1.0}
+               for k in labels)
+    assert set(data["_meta"]["remeasured"]["s1/zero"]) == {
+        "card", "torch", "cuda", "timer", "written_by"}
 
 
 def test_committed_table_covers_zoo_shapes():
