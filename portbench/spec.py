@@ -1,7 +1,8 @@
 """What a cell is made of, found by name: ``BENCHMARK.json`` at the
 checkout's root, ``workloads/<cell>.json``, ``configs/<config>.json``, and
 the modules ``traffic/<kind>.py``, ``metrics/<metric>.py``,
-``reference/<model>.py`` and ``counts/<model>.py`` beside this file.
+``reference/<model>.py``, ``counts/<model>.py`` and (for the CPU tests)
+``tiny/<model>.py`` beside this file.
 
 Nothing here knows a cell, a model or a metric by name: a new one is a new
 file and a new entry in ``BENCHMARK.json``.

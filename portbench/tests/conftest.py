@@ -1,7 +1,6 @@
 """The harness's tests: CPU tests, and tests marked ``card`` that need a
 CUDA card and skip without one (decided in a fixture, never at import)."""
 
-import functools
 import os
 import sys
 
@@ -29,19 +28,12 @@ def card():
 
 def tiny(name):
     """``(config, model)``: the configuration ``name`` at a size the CPU
-    runs in seconds, and the port's model of the same shape."""
-    from compute_engine_tpu_torch.models import zoo
+    runs in seconds, and the port's model of the same shape, from
+    ``tiny/<model>.py`` of the configuration's ``model``."""
     from portbench import spec
 
     cfg = spec.config(name)
-    if name == "quicknet":
-        cfg.update(section_filters=[32, 64], section_blocks=[1, 1],
-                   input_size=[32, 32], num_classes=16)
-        return cfg, zoo.tiny_quicknet((32, 64), (1, 1), 16, 32)
-    cfg.update(input_size=[32, 32], num_classes=16)
-    return cfg, zoo.ModelSpec(
-        "birealnet18", functools.partial(zoo.birealnet18, num_classes=16),
-        input_size=(32, 32), num_classes=16)
+    return spec.module("tiny", cfg["model"]).tiny(cfg)
 
 
 def tiny_workload(cell):

@@ -4,6 +4,8 @@ import pytest
 
 from portbench import peaks, spec
 
+CONFIGS = [c["name"] for c in spec.benchmark()["configs"]]
+
 
 def _counts(name):
     cfg = spec.config(name)
@@ -30,52 +32,81 @@ def test_quicknet_block_floor():
     assert floor_s == pytest.approx(0.2305e-3, rel=1e-3)
 
 
-def _macs_from_layers(name):
-    """Multiply-adds from the reference's own layer list and the output
-    sizes of a SAME-padded forward, walked independently of the counts."""
+def test_birealnet18_block_floor():
+    """13 stride-1 blocks a forward, bound by bytes: the bf16 stream read
+    and written once, the packed filters and the (C_out, 9) int32
+    ``tap_delta`` table once each, 682.1 MB and 0.2036 ms at batch 128; their
+    one-bit multiply-adds take 0.0243 ms at the one-bit peak."""
+    cfg, counts = _counts("birealnet18")
+    launches, floor_s = counts.residual_blocks(cfg, 128)
+    blocks = ([(56, 64)] * 4 + [(28, 128)] * 3 + [(14, 256)] * 3
+              + [(7, 512)] * 3)
+    nbytes = sum(2 * 128 * hw * hw * f * 2 + f * 9 * (f // 32) * 4 + f * 9 * 4
+                 for hw, f in blocks)
+    macs = sum(128 * hw * hw * f * f * 9 for hw, f in blocks)
+    assert launches == 13
+    assert nbytes == pytest.approx(682.1e6, rel=1e-4)
+    assert floor_s == pytest.approx(nbytes / peaks.HBM_BYTES)
+    assert floor_s == pytest.approx(0.2036e-3, rel=1e-3)
+    assert macs / peaks.ONE_BIT_MACS == pytest.approx(0.0243e-3, rel=2e-3)
+
+
+# What one output element of each plain layer function multiplies and adds:
+# a conv's, a binary conv's and a dense layer's kernel holds the output
+# channels on its last axis, a depthwise kernel (kh, kw, C, 1) on its third.
+LAYER_FUNCTIONS = {"conv": ("float", -1), "binary_conv": ("binary", -1),
+                   "depthwise": ("float", 2), "dense": ("float", -1)}
+
+
+def _macs_of_a_forward(name, monkeypatch):
+    """Multiply-adds of one full-size image through the reference's own
+    ``forward``, independent of ``counts/``: each plain layer function of
+    ``reference/plain.py`` is wrapped to record its output's elements times
+    the kernel's weights per output channel. A layer function called inside
+    another counts only in the outer one."""
+    import math
+
+    import torch
+
+    from portbench.reference import plain
+
     cfg = spec.config(name)
     ref = spec.module("reference", cfg["reference"])
+    totals = {"binary": 0, "float": 0}
+    depth = 0
+
+    def counted(fn, kind, channel_axis):
+        def layer(x, p, *args, **kwargs):
+            nonlocal depth
+            depth += 1
+            try:
+                y = fn(x, p, *args, **kwargs)
+            finally:
+                depth -= 1
+            if depth == 0:
+                shape = p["kernel"].shape
+                totals[kind] += (y.numel() * math.prod(shape)
+                                 // shape[channel_axis])
+            return y
+        return layer
+
+    for fname, (kind, channel_axis) in LAYER_FUNCTIONS.items():
+        monkeypatch.setattr(plain, fname, counted(getattr(plain, fname), kind,
+                                                  channel_axis))
+    params = ref.make_params(cfg, 0, "cpu")
     h, w = cfg["input_size"]
-    binary = fl = 0
-    size = {"h": h, "w": w}
-
-    def out(stride):
-        size["h"], size["w"] = -(-size["h"] // stride), -(-size["w"] // stride)
-        return size["h"] * size["w"]
-
-    for lname, kind, shape in ref.layers(cfg):
-        if kind == "dense":
-            fl += shape[0] * shape[1]
-            continue
-        kh, kw, cin, cout = shape
-        if name == "quicknet":
-            stride = 2 if lname in ("stem_conv", "stem_depthwise") else 1
-            if lname.startswith("transition_"):
-                out(2)  # the max pool before it
-            n = out(stride)
-        else:
-            if lname == "stem_conv":
-                n = out(2)
-                out(2)  # the max pool after it
-            elif lname.startswith("shortcut_"):
-                n = (-(-size["h"] // 2)) * (-(-size["w"] // 2))
-            else:
-                down = (lname.endswith("_block_0")
-                        and lname != "stage_0_block_0")
-                n = out(2 if down else 1)
-        macs = n * kh * kw * cin * (1 if kind == "depthwise" else cout)
-        if kind == "binary":
-            binary += macs
-        else:
-            fl += macs
-    return binary, fl
+    with torch.no_grad():
+        ref.forward(params, cfg, torch.zeros(1, h, w, cfg["channels"]),
+                    "float32")
+    return totals["binary"], totals["float"]
 
 
-@pytest.mark.parametrize("name", ["quicknet", "birealnet18"])
-def test_counts_match_the_layers(name):
+@pytest.mark.parametrize("name", CONFIGS)
+def test_counts_match_the_layers(name, monkeypatch):
     cfg, counts = _counts(name)
     c = counts.per_image(cfg)
-    assert (c["binary_macs"], c["float_macs"]) == _macs_from_layers(name)
+    assert (c["binary_macs"], c["float_macs"]) == _macs_of_a_forward(
+        name, monkeypatch)
 
 
 def test_peaks():

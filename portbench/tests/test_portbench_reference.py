@@ -13,6 +13,8 @@ from portbench import check, images, spec, system
 
 from portbench.tests.conftest import tiny
 
+CONFIGS = [c["name"] for c in spec.benchmark()["configs"]]
+
 
 def _both(name, stream, seed=3, rows=16):
     from compute_engine_tpu_torch.models import convert_model
@@ -30,13 +32,13 @@ def _both(name, stream, seed=3, rows=16):
     return interp(x).float(), check.reference_logits(cfg, params, x, stream)
 
 
-@pytest.mark.parametrize("name", ["quicknet", "birealnet18"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_float32_stream_agrees(name):
     served, ref = _both(name, "float32")
     assert check.row_gaps(served, ref).max() < 1e-4
 
 
-@pytest.mark.parametrize("name", ["quicknet", "birealnet18"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_bfloat16_stream_agrees(name):
     """The program lies far closer to the bfloat16-stream reference than
     the float32 model does: it rounds where the reference rounds."""
@@ -47,7 +49,7 @@ def test_bfloat16_stream_agrees(name):
     assert program < 0.25 * float32_model
 
 
-@pytest.mark.parametrize("name", ["quicknet", "birealnet18"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_layers_are_the_ports(name):
     """The reference's layer list has the port's layer names and kernel
     shapes, at the configuration's full size."""

@@ -3,6 +3,7 @@ every cell finds its configuration, traffic kind and metric readers."""
 
 import json
 import os
+import re
 
 import pytest
 
@@ -10,6 +11,7 @@ from portbench import spec
 
 BENCH = spec.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
+CONFIGS = [c["name"] for c in BENCH["configs"]]
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
 
 
@@ -78,6 +80,43 @@ def test_configs_are_files_under_paths():
         assert c["file"] == f"portbench/configs/{c['name']}.json"
         assert spec.config(c["name"])["source"] == c["source"]
         assert c["name"] in {w["config"] for w in BENCH["workloads"]}
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_modules_exist(name):
+    """A configuration's reference and counts, and the CPU-sized model of
+    its ``model`` that the CPU tests run."""
+    cfg = spec.config(name)
+    assert callable(spec.module("reference", cfg["reference"]).layers)
+    assert callable(spec.module("counts", cfg["counts"]).per_image)
+    assert callable(spec.module("tiny", cfg["model"]).tiny)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_tiny_model_is_the_reference(name):
+    """The CPU-sized model is the port's model of the reference: at the cut
+    configuration, the same layer names and kernel shapes."""
+    from compute_engine_tpu_torch.models import init_model
+
+    from portbench.tests.conftest import tiny
+
+    cfg, model = tiny(name)
+    ref = spec.module("reference", cfg["reference"])
+    mine = {n: tuple(shape) for n, _, shape in ref.layers(cfg)}
+    assert mine == {n: tuple(p["kernel"].shape)
+                    for n, p in init_model(model).items()}
+
+
+def test_a_model_without_a_tiny_file_raises(monkeypatch):
+    """Nothing falls back to another model: the error names the file."""
+    from portbench.tests.conftest import tiny
+
+    config = spec.config
+    monkeypatch.setattr(spec, "config", lambda name: {
+        **config(name), "model": "model_without_a_tiny_file"})
+    missing = os.path.join("tiny", "model_without_a_tiny_file.py")
+    with pytest.raises(ValueError, match=re.escape(missing)):
+        tiny(CONFIGS[0])
 
 
 def test_moves_is_reported_where_listed():
