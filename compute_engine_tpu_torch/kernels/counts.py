@@ -2,11 +2,12 @@
 
 Each wrapper keeps a plain integer count of its launches on itself
 (``binary_residual_block.launches``, ``bgemm.launches``,
-``bgemm.splitk_launches``), so that a run can show which kernels its path
-went through. Eagerly a wrapper adds one where it launches. While a CUDA
-graph is captured nothing runs: the wrappers of the capturing thread write
-into a ledger instead (``recording``), and whoever replays the graph adds
-the ledger to the counts once per replay (``add``). The counts then hold
+``bgemm.splitk_launches``; the model builder's channel concatenation,
+``models.builder.concat.launches``), so that a run can show which kernels
+its path went through. Eagerly a wrapper adds one where it launches. While
+a CUDA graph is captured nothing runs: the wrappers of the capturing thread
+write into a ledger instead (``recording``), and whoever replays the graph
+adds the ledger to the counts once per replay (``add``). The counts then hold
 launches on the card, however the forward ran. A ledger that records a
 capture refuses a launch on a stream that is not capturing (one on another
 card than the capture's, say): that launch would run once, now, and no

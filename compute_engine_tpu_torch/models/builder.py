@@ -43,6 +43,7 @@ from ..core.transforms import (OutputTransform, compute_output_thresholds,
 from ..core.types import Activation, Padding, round_half_away
 from ..device import exact_float32, resolve_device
 from ..interop import layers_from_numpy
+from ..kernels import counts
 from ..kernels.bconv2d import (bconv2d_mxu_float_in, bconv2d_mxu_s2d,
                                bdense_mxu, bdense_mxu_float_in)
 from ..kernels.bgemm import bgemm
@@ -54,7 +55,7 @@ from . import layers as L
 __all__ = ["InitBuilder", "FloatBuilder", "CalibrateBuilder",
            "ConvertBuilder", "PackedBuilder", "Int8Tensor", "init_model",
            "float_apply", "calibrate_model", "convert_model",
-           "packed_apply", "prepare_runtime_arrays", "KERNELS"]
+           "packed_apply", "prepare_runtime_arrays", "concat", "KERNELS"]
 
 # The ``kernel=`` values of PackedBuilder and the entry points above it.
 KERNELS = ("auto", "reference", "bgemm", "mxu", "s2d", "residual")
@@ -528,6 +529,19 @@ def _to_int8(y):
     return torch.clamp(round_half_away(y), -127, 127).to(torch.int8)
 
 
+def concat(xs):
+    """``torch.cat`` on the channel axis, the copy of every input into a new
+    tensor, counted in ``concat.launches`` (``kernels.counts``: under a
+    graph's capture, once per replay) on any device. Counted after the copy,
+    which opens the captured segment it belongs to."""
+    y = torch.cat(xs, dim=-1)
+    counts.count(concat)
+    return y
+
+
+concat.launches = 0
+
+
 class _DeferredBConv:
     """A float-output binary conv whose execution waits for its consumer.
 
@@ -710,7 +724,7 @@ class PackedBuilder(_Base):
         return super().add(self._f(a), self._f(b))
 
     def concat(self, xs):
-        return super().concat([self._f(x) for x in xs])
+        return concat([self._f(x) for x in xs])
 
     def activation(self, x, kind):
         return super().activation(self._f(x), kind)

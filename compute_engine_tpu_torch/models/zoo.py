@@ -211,19 +211,22 @@ def _binary_densenet_forward(b, x, *, layers_per_block, reductions,
     return b.softmax(x)
 
 
-def binary_densenet28(b, x):
+def binary_densenet28(b, x, *, num_classes=1000):
     return _binary_densenet_forward(
-        b, x, layers_per_block=(6, 6, 6, 5), reductions=(2.7, 2.7, 2.2))
+        b, x, layers_per_block=(6, 6, 6, 5), reductions=(2.7, 2.7, 2.2),
+        num_classes=num_classes)
 
 
-def binary_densenet37(b, x):
+def binary_densenet37(b, x, *, num_classes=1000):
     return _binary_densenet_forward(
-        b, x, layers_per_block=(6, 8, 12, 6), reductions=(3.3, 3.3, 4.0))
+        b, x, layers_per_block=(6, 8, 12, 6), reductions=(3.3, 3.3, 4.0),
+        num_classes=num_classes)
 
 
-def binary_densenet45(b, x):
+def binary_densenet45(b, x, *, num_classes=1000):
     return _binary_densenet_forward(
-        b, x, layers_per_block=(6, 12, 14, 8), reductions=(2.7, 3.3, 4.0))
+        b, x, layers_per_block=(6, 12, 14, 8), reductions=(2.7, 3.3, 4.0),
+        num_classes=num_classes)
 
 
 def tiny_quicknet(section_filters=(32, 64), section_blocks=(1, 1),

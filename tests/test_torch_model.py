@@ -113,7 +113,8 @@ def test_runtime_layers_are_contiguous(port_layers):
 
 
 @pytest.mark.parametrize("name", ["quicknet", "birealnet18",
-                                  "binary_resnet_e18", "binary_densenet28"])
+                                  "binary_resnet_e18", "binary_densenet28",
+                                  "binary_densenet37", "binary_densenet45"])
 def test_full_zoo_models_convert_like_jax(name):
     """Shape tracing on the meta device walks every zoo topology at full
     size, producing JAX's layer set and packed shapes."""
@@ -244,6 +245,44 @@ def test_other_topologies_match_jax_on_cpu(rng, forward, size):
                        device="cpu").numpy()
     np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2)
     assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+def test_densenet_counts_one_concatenation_a_dense_layer(monkeypatch):
+    """``PackedBuilder`` counts each concatenation it launches in
+    ``concat.launches``, eagerly, and into the ledger under
+    ``counts.recording`` (what a capture records and a replay adds)."""
+    from compute_engine_tpu_torch.kernels import counts
+    from compute_engine_tpu_torch.models.builder import concat
+    from compute_engine_tpu_torch.models.zoo import ModelSpec
+
+    spec = ModelSpec("m", _tiny_densenet, input_size=(32, 32),
+                     num_classes=10)
+    layers = convert_model(spec, init_model(spec, seed=0))
+    x = np.zeros((2, 32, 32, 3), np.float32)
+    monkeypatch.setattr(concat, "launches", 0)
+    packed_apply(spec, layers, x, device="cpu")
+    assert concat.launches == 4
+    with counts.recording() as ledger:
+        packed_apply(spec, layers, x, device="cpu")
+    assert ledger == {(concat, "launches"): 4}
+    assert concat.launches == 4
+
+
+def test_binary_densenet45_takes_num_classes():
+    """``binary_densenet45(num_classes=16)``: a 16-way head, 16 logits."""
+    import functools
+
+    from compute_engine_tpu_torch.models.zoo import (ModelSpec,
+                                                     binary_densenet45)
+
+    spec = ModelSpec("m", functools.partial(binary_densenet45,
+                                            num_classes=16),
+                     input_size=(32, 32), num_classes=16)
+    params = init_model(spec, seed=0)
+    assert tuple(params["head"]["kernel"].shape) == (800, 16)
+    out = packed_apply(spec, convert_model(spec, params),
+                       np.zeros((2, 32, 32, 3), np.float32), device="cpu")
+    assert out.shape == (2, 16)
 
 
 def test_forward_runs_sixteen_blocks_fused(monkeypatch):
