@@ -35,12 +35,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and 128, in bfloat16 and float32, with and without the add, at a
      ragged and an odd channel count and with C != C_out, in the default
      build and in the debug build;
+   - the residual block in place (``dense_compare``): reading a channel
+     prefix of a wider buffer and writing its 64 channels into their slot,
+     at BinaryDenseNet-45's 40 dense layers at batch 8 (float32 too at each
+     block's first and last) and one at batch 128, the whole buffer equal;
    ``--compare-only`` stops here. ``--zero-pad-only`` builds, runs the
    zero-padded comparisons, times the zero-padded block at Bi-RealNet's
    b128 shapes beside the one-padded block and the lowerings it replaces,
    QuickNet's 16 one-padded blocks per forward, drives Bi-RealNet-18 b128
    through ``Interpreter`` (the launches ``expected_launches`` gives, the
    logits ``torch.equal`` to the plain versions' forward) and stops.
+   ``--dense-only`` builds, runs the in-place comparisons in both builds
+   and QuickNet's and Bi-RealNet's contiguous blocks, times the 40 dense
+   layers in place beside their dense-input form, drives
+   BinaryDenseNet-45 b128 through ``Interpreter`` with the stream in place
+   and concatenated by ``torch.cat`` (launches, logits equal, both timed
+   and profiled) and stops.
    ``--sweep-residual`` times the residual
    block at every block size (warps, channel tiles per block) it can be
    launched with, at the QuickNet shapes, and stops: the choice in
@@ -278,6 +288,12 @@ BIREAL_BLOCK_COUNTS = (4, 3, 3, 3)
 ZERO_PAD_BATCHES = (1, 8, 128)
 ODD = (3, 6, 5, 20)  # channels not a multiple of 8: no 16-byte access
 BLOCKS_PER_SHAPE = 4  # QuickNet: 4 blocks in each of the four sections
+# BinaryDenseNet-45's dense blocks: (height = width, channels entering,
+# layers), each layer 64 channels more; the stream lies in one buffer as
+# wide as the block's final width (448, 928, 1152, 800).
+DENSE_BLOCKS = [(56, 64, 6), (28, 160, 12), (14, 256, 14), (7, 288, 8)]
+DENSE_GROWTH = 64
+DENSE_B128 = (56, 384, 448)  # the b128 case: block 0's last layer
 TOLERANCE = "torch.equal (bit for bit)"
 
 # BinaryAlexNet's binary GEMMs at batch 128 in the packed domain:
@@ -576,11 +592,38 @@ def time_gemm(rng, m, kw, n, kind, device, max_block_kw=1024,
 
 
 def kernel_times(rng, device, card):
-    """The kernels alone at the main-path shapes, without yardsticks."""
+    """The kernels alone at the main-path shapes, without yardsticks; the
+    block kernel's time a b128 forward of QuickNet (16 blocks), of
+    Bi-RealNet-18 (13 zero-padded blocks with their adds) and of
+    BinaryDenseNet-45 (40 dense layers on dense inputs)."""
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.core.reference import (
+        zero_padding_tap_delta)
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block)
+
+    quicknet_ms = 0.0
     for shape in QUICKNET_BLOCKS:
         t = time_block(rng, shape, device, yardsticks=False)
+        quicknet_ms += BLOCKS_PER_SHAPE * t["ms"]
         print(f"[kernel-times] residual_block {'x'.join(map(str, shape))} "
               f"bf16: {t['ms']:.4f} ms [{card}]", flush=True)
+    birealnet_ms = 0.0
+    for (h, w, c), count in zip(BIREAL_BLOCKS, BIREAL_BLOCK_COUNTS):
+        x, pf, tr = block_case(rng, (128, h, w, c), device, torch.bfloat16,
+                               False)
+        p = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=0)
+        delta = zero_padding_tap_delta(pf, p)
+        birealnet_ms += count * time_ms(
+            lambda: binary_residual_block(x, pf, tr, p, tap_delta=delta),
+            reps=50)
+    print(f"[kernel-times] residual_block a b128 forward: QuickNet's 16 "
+          f"{quicknet_ms:.4f} ms, Bi-RealNet-18's 13 zero-padded "
+          f"{birealnet_ms:.4f} ms, BinaryDenseNet-45's 40 on dense inputs "
+          f"{dense_layer_times(rng, device, in_place=False):.4f} ms "
+          f"[{card}]", flush=True)
     m, kw, n = RAGGED_GEMM
     for name, m, kw, n, kind, block_kw in (
             [g + (1024,) for g in ALEXNET_GEMMS]
@@ -1272,6 +1315,197 @@ def zero_pad_phase(dev, card):
           f"versions' forward ({TOLERANCE}) [{card}]", flush=True)
     return {"birealnet_blocks": rows, "birealnet_zero_pad_ms": zero_ms,
             "birealnet_one_pad_ms": one_ms, "quicknet_blocks_ms": quicknet_ms}
+
+
+def dense_layers():
+    """(height = width, C_in, the block's buffer width) of BinaryDenseNet-45's
+    40 dense layers, in order."""
+    for hw, c0, n in DENSE_BLOCKS:
+        for i in range(n):
+            yield hw, c0 + DENSE_GROWTH * i, c0 + DENSE_GROWTH * n
+
+
+def dense_case(rng, batch, hw, c, width, dev, dtype):
+    """A dense layer in place: a buffer of ``width`` channels with random
+    values everywhere, the layer's filter and transform (C_in = ``c``, 64
+    out); the layer reads ``buf[..., :c]`` and writes
+    ``buf[..., c:c + 64]``."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(rng.integers(2 ** 62)))
+    buf = torch.randn((batch, hw, hw, width), generator=g, device=dev).to(
+        dtype)
+    flat = buf.view(-1)
+    flat[::97] = 0.0
+    flat[1::89] = -0.0
+    _, pf, tr = block_case(rng, (1, 1, 1, c), dev, dtype, False,
+                           DENSE_GROWTH)
+    return buf, pf, tr
+
+
+def dense_compare(rng, dev, batch=8, checked=False):
+    """The block kernel in place against its plain version, ``torch.equal``
+    over the whole buffer (the slot written, every other channel as it
+    was): BinaryDenseNet-45's 40 dense layers at ``batch`` in bfloat16, the
+    first and last layer of each block in float32 too, and
+    ``DENSE_B128``. ``checked`` runs the kernel's debug build. Returns the
+    cases."""
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+
+    cases = [(batch, hw, c, width, torch.bfloat16)
+             for hw, c, width in dense_layers()]
+    cases += [(batch, hw, c0 + DENSE_GROWTH * i, c0 + DENSE_GROWTH * n,
+               torch.float32)
+              for hw, c0, n in DENSE_BLOCKS for i in (0, n - 1)]
+    cases.append((128, *DENSE_B128, torch.bfloat16))
+    # One pixel (the last block of a 32x32 DenseNet-45 at batch 1), whose
+    # channel slices PyTorch counts as dense.
+    _, c0, n = DENSE_BLOCKS[-1]
+    cases += [(1, 1, c0 + DENSE_GROWTH * i, c0 + DENSE_GROWTH * n,
+               torch.bfloat16) for i in (0, n - 1)]
+    for n, hw, c, width, dtype in cases:
+        p = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
+        buf, pf, tr = dense_case(rng, n, hw, c, width, dev, dtype)
+        got, want = buf.clone(), buf.clone()
+        slot = slice(c, c + DENSE_GROWTH)
+        with debug_checks() if checked else contextlib.nullcontext():
+            binary_residual_block(got[..., :c], pf, tr, p, has_residual=False,
+                                  out=got[..., slot])
+            torch.cuda.synchronize()
+        binary_residual_block_plain(want[..., :c], pf, tr, p,
+                                    has_residual=False, out=want[..., slot])
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, want),
+              f"residual_block in place {n}x{hw}x{hw} C_in {c} of {width} "
+              f"{dtype}{' debug' if checked else ''}: kernel != plain "
+              f"(max |diff| {err})")
+    print(f"[compare] residual_block in place{' (debug build)' * checked}: "
+          f"{len(cases)} cases equal ({TOLERANCE}): BinaryDenseNet-45's "
+          f"40 dense layers at b{batch} reading a channel prefix and writing "
+          f"their slot, bf16, float32 at each block's first and last, "
+          f"{DENSE_B128} at b128 and the last block's first and last at "
+          f"one pixel", flush=True)
+    return len(cases)
+
+
+def dense_layer_times(rng, dev, in_place=True):
+    """Milliseconds of BinaryDenseNet-45's 40 dense layers at b128 in bf16,
+    each by CUDA-graph replay: in place (the prefix of the block's buffer
+    in, the slot out) or, with ``in_place=False``, on a dense input of its
+    C_in channels into a new tensor, as before the stream lay in place."""
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block)
+
+    total = 0.0
+    for hw, c, width in dense_layers():
+        p = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=1)
+        buf, pf, tr = dense_case(rng, 128, hw, c, width, dev, torch.bfloat16)
+        if in_place:
+            x, out = buf[..., :c], buf[..., c:c + DENSE_GROWTH]
+            total += time_ms(lambda: binary_residual_block(
+                x, pf, tr, p, has_residual=False, out=out), reps=20)
+        else:
+            x = buf[..., :c].contiguous()
+            total += time_ms(lambda: binary_residual_block(
+                x, pf, tr, p, has_residual=False), reps=20)
+        del buf
+    return total
+
+
+def dense_phase(dev, card):
+    """``--dense-only``: the in-place comparisons in both builds, QuickNet's
+    and Bi-RealNet's contiguous blocks still equal, the 40 dense layers
+    timed in place beside their contiguous form, and BinaryDenseNet-45 b128
+    through ``Interpreter`` with its stream in place against the same
+    forward concatenated by ``torch.cat``: logits equal, the launches and
+    concatenations counted, both timed and profiled."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.core import BConv2DParams, Padding
+    from compute_engine_tpu_torch.core.reference import (
+        zero_padding_tap_delta)
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+    from compute_engine_tpu_torch.models import (convert_model, get_model,
+                                                 init_model)
+    from compute_engine_tpu_torch.models.builder import (PackedBuilder,
+                                                         _Base, concat)
+    from compute_engine_tpu_torch.runtime import Interpreter
+
+    drng = np.random.default_rng(45)
+    dense_compare(drng, dev)
+    dense_compare(drng, dev, checked=True)
+    for (h, w, c), zero in ([(s[1:], False) for s in QUICKNET_BLOCKS]
+                            + [(s, True) for s in BIREAL_BLOCKS]):
+        p = BConv2DParams(channels_in=c, padding=Padding.SAME,
+                          pad_value=0 if zero else 1)
+        x, pf, tr = block_case(drng, (128, h, w, c), dev, torch.bfloat16,
+                               False)
+        delta = zero_padding_tap_delta(pf, p) if zero else None
+        check(torch.equal(binary_residual_block(x, pf, tr, p,
+                                                tap_delta=delta),
+                          binary_residual_block_plain(x, pf, tr, p)),
+              f"{'zero' if zero else 'one'}-padded residual_block "
+              f"128x{h}x{w}x{c}: kernel != plain")
+    print(f"[compare] contiguous residual_block with the add at QuickNet's "
+          f"and Bi-RealNet's b128 shapes: equal ({TOLERANCE})", flush=True)
+
+    dense_ms = {"in_place": dense_layer_times(drng, dev),
+                "contiguous": dense_layer_times(drng, dev, in_place=False)}
+    print(f"[dense-time] BinaryDenseNet-45's 40 dense layers a b128 forward "
+          f"(bf16, graph replays): in place {dense_ms['in_place']:.4f} ms, "
+          f"contiguous {dense_ms['contiguous']:.4f} ms [{card}]", flush=True)
+
+    spec = get_model("binary_densenet45")
+    layers = convert_model(spec, init_model(spec, seed=0, randomize_bn=True))
+    x = torch.from_numpy(drng.normal(0, 1, (128, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    runs, in_place_block = {}, PackedBuilder.dense_block
+    for label in ("in_place", "torch.cat"):
+        if label == "torch.cat":
+            PackedBuilder.dense_block = _Base.dense_block
+        try:
+            interp = Interpreter(spec, layers, output_mode="logits",
+                                 device=dev)
+            interp(x)  # compiles
+            reset_launches()
+            concat.launches = concat.in_place = 0
+            logits = interp(x).clone()
+            got = (*launch_counts(), concat.launches, concat.in_place)
+            ms = time_ms(lambda: interp(x), reps=20, graph=False)
+            print(f"[dense] BinaryDenseNet-45 b128 Interpreter, {label}: "
+                  f"(block, bgemm, split-K, concatenations, in place) "
+                  f"{got}; {ms:.4f} ms a forward by CUDA events over 20 "
+                  f"calls [{card}]", flush=True)
+            busy = profile_forward(lambda: interp(x), top=30)
+            runs[label] = {"launches": got, "ms": ms, "busy_ms": busy,
+                           "logits": logits}
+        finally:
+            PackedBuilder.dense_block = in_place_block
+        del interp
+    check(runs["in_place"]["launches"] == (40, 0, 0, 40, 40),
+          f"in place: launches {runs['in_place']['launches']}, expected 40 "
+          f"block launches and 40 concatenations, all in place")
+    check(runs["torch.cat"]["launches"] == (40, 0, 0, 40, 0),
+          f"torch.cat: launches {runs['torch.cat']['launches']}")
+    a, b = runs["in_place"]["logits"], runs["torch.cat"]["logits"]
+    check(torch.equal(a, b), "BinaryDenseNet-45 b128 logits in place != "
+          f"by torch.cat (max |diff| {(a - b).abs().max().item()})")
+    print(f"[dense] logits in place equal to those by torch.cat "
+          f"({TOLERANCE})", flush=True)
+    return {"dense_layers_ms": dense_ms,
+            **{f"forward_ms.{k}": v["ms"] for k, v in runs.items()},
+            **{f"busy_ms.{k}": v["busy_ms"] for k, v in runs.items()}}
 
 
 def selection_phase(dev, card):
@@ -2607,7 +2841,8 @@ def main():
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill", "smem")):
                 print(f"[build] {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
@@ -2652,6 +2887,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         return 0
     if "--zero-pad-only" in args:
         print(json.dumps({"zero_pad": zero_pad_phase(dev, card)}))
+        return 0
+    if "--dense-only" in args:
+        print(json.dumps({"dense": dense_phase(dev, card)}))
         return 0
     if "--train-only" in args:
         models = TRAIN_MODELS
@@ -2726,6 +2964,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
               f"{c_out} channels bfloat16 no-residual: equal ({TOLERANCE})",
               flush=True)
     zero_pad_compare(np.random.default_rng(17), dev)
+    dense_compare(np.random.default_rng(45), dev)
 
     gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0, "bgemm_int8": 0.0}
     gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})

@@ -59,6 +59,13 @@
 //    the read of x for the add, are 16 bytes a thread along C; then add x
 //    and round again: the two roundings of the unfused "store, then add"
 //    chain, so the kernel equals its plain PyTorch version bit for bit.
+//  * Strides: a pixel of x lies XS >= C elements after the previous one and
+//    a pixel of out OS >= C_out after, so x may be a channel prefix of a
+//    wider NHWC buffer and out a channel slice of one. A dense block's layer
+//    reads the stream where it lies and writes its channels just after it,
+//    and nothing is concatenated. The add reads x at C (its forms need
+//    XS == C). The 16-byte paths need the strides and the slices' offsets in
+//    whole groups of 8 channels.
 //  * Registers are capped at 128 a thread (16 warps an SM), of which 64 are
 //    accumulators.
 //  * Debug build (-DCE_DEBUG_CHECKS, debug_checks.cuh): the invariant of the
@@ -183,6 +190,7 @@ __device__ __forceinline__ Vec8<__nv_bfloat16> pack8(const float (&f)[8],
 
 struct Shape {
   int N, H, W, C, CO, CW;
+  int XS, OS;      // elements between pixels of x (>= C) and of out (>= CO)
   int WP, plane;   // W + 2, (H + 2) (W + 2)
   int total;       // N * plane padded positions
   int KW, KWpad;   // 9 CW words of K, padded to a multiple of 8
@@ -305,7 +313,8 @@ residual_block_kernel(const T* __restrict__ x,
       c[u] = 8 * (item - pos * groups);
       const int pix = item < items ? pixel[pos] : -1;
       word[u] = item < items ? pos * s.CWs + (item - pos * groups) / 4 : -1;
-      src[u] = pix >= 0 && c[u] < s.C ? x + (size_t)pix * s.C + c[u] : nullptr;
+      src[u] = pix >= 0 && c[u] < s.C ? x + (size_t)pix * s.XS + c[u]
+                                      : nullptr;
       if (vec_x && src[u]) v[u] = load8(src[u]);
     }
 #pragma unroll
@@ -485,7 +494,7 @@ residual_block_kernel(const T* __restrict__ x,
         const int item = base + u * kThreads;
         const int c = 8 * (item % (kBN / 8)), co = co0 + c;
         const T* y = stage + (item / (kBN / 8)) * kStageStride + c;
-        T* dst = out + pix[u] * s.CO + co;
+        T* dst = out + pix[u] * s.OS + co;
         if (vec_out) {
           Vec8<T> v = load8(y);
           if (kResidual) {
@@ -540,9 +549,10 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   // 16-byte accesses need whole groups of 8 channels and aligned rows.
-  const int vec_x = s.C % 8 == 0 && aligned(x);
+  const int vec_x = s.C % 8 == 0 && s.XS % 8 == 0 && aligned(x);
   const int vec_f = s.CW % 4 == 0 && aligned(filt);
-  const int vec_out = s.CO % 8 == 0 && aligned(out) && (!kResidual || vec_x);
+  const int vec_out =
+      s.CO % 8 == 0 && s.OS % 8 == 0 && aligned(out) && (!kResidual || vec_x);
 
   auto kernel = residual_block_kernel<T, kResidual, kZeroPad, WARPS>;
   // Raised once per instantiation and device: the attribute is the current
@@ -606,7 +616,11 @@ int launch_form(bool residual, bool zero_pad, int warps, const void* x,
 
 // dtype: 0 = float32, 1 = bfloat16. tap_delta: null for one padding; for
 // zero padding the (c_out, 9) int32 table binary_zero_point - popcount of
-// each filter tap (core/reference.py::zero_padding_tap_delta). The launch
+// each filter tap (core/reference.py::zero_padding_tap_delta). x_stride and
+// out_stride: the elements from one pixel to the next in x (at least c) and
+// in out (at least c_out), each a channel slice of a wider NHWC row where it
+// exceeds its channels; the residual forms read x for the add at c and need
+// x_stride == c. The launch
 // plan is the caller's (kernels/residual.py::plan_residual_block): warps, 2,
 // 4 or 8 a block, 32 output positions each; tiles_per_block, the tiles of 64
 // output channels that a block computes from its band; and the number of
@@ -616,12 +630,14 @@ extern "C" int ce_residual_block(const void* x, const void* filt,
                                  const void* mul, const void* bias,
                                  const void* tap_delta, void* out,
                                  int n, int h, int w, int c, int c_out,
+                                 int x_stride, int out_stride,
                                  int clamp_min, int clamp_max,
                                  int has_residual, int dtype, int warps,
                                  int tiles_per_block, int blocks,
                                  int smem_bytes, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c_out <= 0 ||
-      (has_residual && c != c_out) || (dtype != 0 && dtype != 1) ||
+      (has_residual && (c != c_out || x_stride != c)) || x_stride < c ||
+      out_stride < c_out || (dtype != 0 && dtype != 1) ||
       (warps != 2 && warps != 4 && warps != 8) || tiles_per_block < 1 ||
       blocks < 1 || smem_bytes < 1 ||
       (long long)n * (h + 2) * (w + 2) + 8 * 32 > 0x7fffffffLL ||
@@ -631,6 +647,7 @@ extern "C" int ce_residual_block(const void* x, const void* filt,
     return (int)cudaErrorInvalidValue;
   Shape s;
   s.N = n; s.H = h; s.W = w; s.C = c; s.CO = c_out;
+  s.XS = x_stride; s.OS = out_stride;
   s.CW = (c + 31) / 32;
   s.WP = w + 2;
   s.plane = (h + 2) * (w + 2);

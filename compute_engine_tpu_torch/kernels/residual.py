@@ -31,6 +31,13 @@ unfused "store, then add" chain does. The kernel therefore equals the plain
 version bit for bit; against JAX it may differ by one FMA rounding, as
 JAX's own fused and unfused paths do.
 
+Strides: ``x`` may be a channel prefix of a wider NHWC buffer and ``out=``
+a channel slice of one (``buf[..., :w]``, ``buf[..., w:w + 64]``): the
+kernel reads and writes each at the row's own pixel stride, read from the
+tensors' ``stride()``, so a dense block's layer reads its stream in place
+and writes its channels after it (``models.builder.PackedBuilder.
+dense_block``). Any other layout raises; nothing is copied to make it fit.
+
 Inside ``kernels.debug_checks()`` the kernel's debug build runs, and the
 plain version checks, the Pallas kernel's debug invariant ``|t| <= K``
 (K = 9 C) for the +-1 conv ``t`` (``kernels/debug.py``).
@@ -82,18 +89,73 @@ def residual_block_supported(x_shape, params: BConv2DParams, c_out: int,
 def binary_residual_block_plain(x, packed_filter, transform: OutputTransform,
                                 params: BConv2DParams, has_residual=True,
                                 unpacked_filter=None, tap_delta=None,
-                                _debug_k=None):
+                                _debug_k=None, out=None):
     """Plain PyTorch version: the unfused conv, rounded to ``x.dtype``, plus
     ``x``; zero padding is the integer conv's own (``tap_delta`` is not
-    read). Inside ``kernels.debug_checks()`` it also holds ``|t| <= K``
+    read). ``x`` and ``out`` take the layouts the kernel takes
+    (``_pixel_strides``); the result is written into ``out`` where it is
+    given. Inside ``kernels.debug_checks()`` it also holds ``|t| <= K``
     (``_debug_k`` declares a K other than 9 C, as the kernel's does)."""
+    _pixel_strides(x, packed_filter.shape[0], has_residual, out)
     debug.require_enabled(_debug_k=_debug_k)
     if debug.enabled():
         _check_conv_bound(x, packed_filter, params, unpacked_filter, _debug_k)
     y = bconv2d_mxu_float_in(x, packed_filter, transform, params,
                              output_kind="float",
                              unpacked_filter=unpacked_filter).to(x.dtype)
-    return x + y if has_residual else y
+    y = x + y if has_residual else y
+    return y if out is None else out.copy_(y)
+
+
+def _pixel_stride(t, name):
+    """The elements from one pixel of the NHWC tensor ``t`` to the next:
+    its channels where it is dense, else the row's width where it is a
+    channel slice of a dense NHWC tensor (unit channel stride, every pixel
+    one row of it). Raises for any other layout."""
+    if t.is_contiguous():
+        return t.shape[-1]
+    n, h, w, c = t.shape
+    p = t.stride(2)
+    if t.stride(3) == 1 and p >= c and all(
+            size == 1 or stride == want
+            for size, stride, want in zip((n, h), t.stride()[:2],
+                                          (h * w * p, w * p))):
+        return p
+    raise ValueError(f"{name} must be dense NHWC or a channel slice of a "
+                     f"dense NHWC tensor, not shape {tuple(t.shape)} with "
+                     f"strides {t.stride()}")
+
+
+def _pixel_strides(x, c_out, has_residual=True, out=None):
+    """(x's pixel stride, out's): the layouts the block takes. ``x`` is
+    dense NHWC or a channel slice of a dense NHWC tensor (the residual
+    forms, which read ``x`` again for the add, take it dense); ``out``,
+    where given, the (N, H, W, C_out) result in ``x``'s dtype on its device,
+    laid out likewise and apart from the channels ``x`` reads. Raises
+    ``ValueError`` for any other operand: nothing is copied to fit."""
+    xs = _pixel_stride(x, "x")
+    if has_residual and xs != x.shape[-1]:
+        raise ValueError("the residual forms read x for the add: x must be "
+                         "dense")
+    if out is None:
+        return xs, c_out
+    want = (*x.shape[:-1], c_out)
+    if (tuple(out.shape) != want or out.dtype != x.dtype
+            or out.device != x.device):
+        raise ValueError(f"out must be {want} {x.dtype} on {x.device}, not "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    os_ = _pixel_stride(out, "out")
+    if x.untyped_storage().data_ptr() == out.untyped_storage().data_ptr():
+        # One buffer: the same rows, with out's channels after x's or
+        # before them. A single pixel is one row whatever its strides: a
+        # one-pixel channel slice counts as dense, so its stride is its
+        # own width and not the buffer's.
+        x0, o0 = x.storage_offset(), out.storage_offset()
+        one_row = x.shape[:-1].numel() == 1 or (
+            xs == os_ and x0 // xs == o0 // xs)
+        if not one_row or not (o0 >= x0 + x.shape[-1] or x0 >= o0 + c_out):
+            raise ValueError("out overlaps the channels x reads")
+    return xs, os_
 
 
 def _check_conv_bound(x, packed_filter, params, unpacked_filter, declared_k):
@@ -168,7 +230,7 @@ def _library(debug_build=False):
     lib = load("residual_block", debug_build)
     fn = lib.ce_residual_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ce_error_string.argtypes = [ctypes.c_int]
@@ -177,11 +239,12 @@ def _library(debug_build=False):
 
 
 def _launch(x, packed_filter, transform, has_residual, block=None,
-            debug_k=None, tap_delta=None):
+            debug_k=None, tap_delta=None, out=None):
     """Launches the kernel, zero-padded where ``tap_delta`` (the (C_out, 9)
-    int32 table) is given. ``block`` is (warps, tiles_per_block) in place
-    of the planner's choice, for a sweep over block sizes; ``debug_k`` is
-    the K that the debug build holds ``|t|`` to (9 C by default)."""
+    int32 table) is given, into ``out`` where it is given. ``block`` is
+    (warps, tiles_per_block) in place of the planner's choice, for a sweep
+    over block sizes; ``debug_k`` is the K that the debug build holds
+    ``|t|`` to (9 C by default)."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, not {x.device}")
     n, h, w, c = x.shape
@@ -209,8 +272,9 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
     for name, t in operands:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
+        if name != "x" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    x_stride, out_stride = _pixel_strides(x, c_out, has_residual, out)
     if mul.shape != (c_out,) or bias.shape != (c_out,):
         raise ValueError("multiplier and bias need one value per channel")
     plan = plan_residual_block(n, h, w, c, c_out, x.element_size(),
@@ -218,7 +282,8 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
     if plan["smem_bytes"] > MAX_SHARED_BYTES or plan["blocks"] >= 2 ** 31:
         raise ValueError(f"residual block {tuple(x.shape)} -> {c_out} "
                          f"channels does not fit the kernel: {plan}")
-    out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
     checked = debug.enabled()
     lib = _library(checked)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -229,7 +294,7 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
         rc = lib.ce_residual_block(
             x.data_ptr(), packed_filter.data_ptr(), mul.data_ptr(),
             bias.data_ptr(), tap_delta.data_ptr() if zero_pad else None,
-            out.data_ptr(), n, h, w, c, c_out,
+            out.data_ptr(), n, h, w, c, c_out, x_stride, out_stride,
             int(transform.clamp_min), int(transform.clamp_max),
             int(has_residual), _DTYPE_CODES[x.dtype], plan["warps"],
             plan["tiles_per_block"], plan["blocks"], plan["smem_bytes"],
@@ -254,11 +319,13 @@ def _count_launch(zero_pad: bool) -> None:
 def binary_residual_block(x, packed_filter, transform: OutputTransform,
                           params: BConv2DParams, has_residual=True,
                           unpacked_filter=None, tap_delta=None,
-                          _debug_k=None):
+                          _debug_k=None, out=None):
     """``x + float_transform(bconv3x3_same(sign(x)))`` in one kernel.
 
     Args:
-      x: (N, H, W, C) float32 or bfloat16 activations.
+      x: (N, H, W, C) float32 or bfloat16 activations: dense NHWC, or
+        without the add a channel slice of a dense NHWC tensor (unit
+        channel stride; ``buf[..., :C]``).
       packed_filter: (C_out, 3, 3, ceil(C/32)) int32 packed filter.
       transform: float OutputTransform (multiplier, bias, clamps).
       params: stride-1 SAME BConv2DParams, one or zero padding, groups=1.
@@ -267,8 +334,12 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
       tap_delta: for zero padding, the (C_out, 9) int32
         ``zero_padding_tap_delta`` of ``packed_filter`` on the activation's
         device; computed here when not given. Not read under one padding.
+      out: where given, the (N, H, W, C_out) tensor in ``x.dtype`` to write
+        the result into: dense, or a channel slice of a dense NHWC tensor
+        apart from the channels ``x`` reads (``buf[..., w:w + C_out]``).
+        Any other operand raises ``ValueError`` (``_pixel_strides``).
 
-    Returns (N, H, W, C_out) in ``x.dtype``. CPU tensors take the plain
+    Returns (N, H, W, C_out) in ``x.dtype`` (``out`` where given). CPU tensors take the plain
     version; CUDA tensors take the kernel, which counts its launches in
     ``binary_residual_block.launches``, and the zero-padded ones also in
     ``binary_residual_block.zero_pad_launches`` (under a graph's capture,
@@ -287,7 +358,7 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
         return binary_residual_block_plain(x, packed_filter, transform,
                                            params, has_residual,
                                            unpacked_filter,
-                                           _debug_k=_debug_k)
+                                           _debug_k=_debug_k, out=out)
     if x.device.type != "cuda":
         raise ValueError(f"no residual block kernel for device {x.device}")
     if params.pad_value == 1:
@@ -295,7 +366,7 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
     elif tap_delta is None:
         tap_delta = zero_padding_tap_delta(packed_filter, params)
     return _launch(x, packed_filter, transform, has_residual,
-                   debug_k=_debug_k, tap_delta=tap_delta)
+                   debug_k=_debug_k, tap_delta=tap_delta, out=out)
 
 
 binary_residual_block.launches = 0

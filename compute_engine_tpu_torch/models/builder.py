@@ -83,6 +83,12 @@ class _Base:
     def concat(self, xs):
         return torch.cat(xs, dim=-1)
 
+    def dense_block(self, x, width):
+        """The stream ``x`` entering a dense block whose concatenations
+        grow it to ``width`` channels. Only the packed forward makes use of
+        the width; here the stream is returned as it is."""
+        return x
+
     def flatten(self, x):
         return x.reshape(x.shape[0], -1)
 
@@ -540,6 +546,41 @@ def concat(xs):
 
 
 concat.launches = 0
+concat.in_place = 0
+
+
+class _DenseStream:
+    """A dense block's stream where it lies: the first ``width`` channels of
+    ``buf``, one buffer as wide as the block's final width
+    (``PackedBuilder.dense_block``). A layer that reads the stream writes
+    its channels into the ``slot`` after them, and the concatenation of the
+    two is the next stream over the same buffer, with nothing copied. A
+    stream grows once: a second concatenation onto it would overwrite what
+    the first wrote there, so it copies as ``torch.cat`` does."""
+
+    def __init__(self, buf, width):
+        self.buf, self.width = buf, width
+        self.grown = False
+
+    @property
+    def shape(self):
+        return (*self.buf.shape[:-1], self.width)
+
+    def value(self):
+        return self.buf[..., :self.width]
+
+    def slot(self, channels):
+        """The ``channels`` channels after the stream, or None where they
+        do not fit or the stream has grown already."""
+        end = self.width + channels
+        if self.grown or end > self.buf.shape[-1]:
+            return None
+        return self.buf[..., self.width:end]
+
+    def grow(self, channels):
+        """The stream with its slot of ``channels`` channels, written."""
+        self.grown = True
+        return _DenseStream(self.buf, self.width + channels)
 
 
 class _DeferredBConv:
@@ -550,25 +591,37 @@ class _DeferredBConv:
     call. Any other consumer calls ``materialize()``: before the fused add it
     runs the same kernel without the add; after it, it returns
     ``fused - x``, as the JAX package does, rather than a second conv that
-    could differ from the fused one by a rounding.
+    could differ from the fused one by a rounding. A dense layer's conv
+    (``stream``: its input is a ``_DenseStream``) waits for its
+    concatenation, which runs it into its slot of the stream's buffer
+    (``materialize(out=)``).
     """
 
     def __init__(self, x, packed_filter, transform, params, block,
-                 unpacked_filter, tap_delta):
+                 unpacked_filter, tap_delta, stream=None):
         self.x = x
+        self.stream = stream
+        self.channels = packed_filter.shape[0]
         self._args = (packed_filter, transform, params)
         self._block = block
         self._kw = dict(unpacked_filter=unpacked_filter, tap_delta=tap_delta)
         self._value = None
         self._fused = None
 
-    def materialize(self):
+    def pending(self):
+        """True until the conv has run, fused or not."""
+        return self._value is None and self._fused is None
+
+    def materialize(self, out=None):
+        """The conv's output; run into ``out`` where the conv is still
+        pending."""
         if self._value is None:
             if self._fused is not None:
                 self._value = self._fused - self.x.to(self._fused.dtype)
             else:
+                kw = self._kw if out is None else dict(self._kw, out=out)
                 self._value = self._block(self.x, *self._args,
-                                          has_residual=False, **self._kw)
+                                          has_residual=False, **kw)
         return self._value
 
     def fuses_with(self, other):
@@ -660,6 +713,8 @@ class PackedBuilder(_Base):
             return x.materialize()
         if isinstance(x, (_BinaryStream, Int8Tensor)):
             return x.to_float()
+        if isinstance(x, _DenseStream):
+            return x.value()
         return x
 
     def _store(self, y):
@@ -723,7 +778,36 @@ class PackedBuilder(_Base):
             return Int8Tensor(_to_int8(y), so)
         return super().add(self._f(a), self._f(b))
 
+    def dense_block(self, x, width):
+        """A float stream entering a dense block that grows it to ``width``
+        channels, stored once into the first channels of a buffer of that
+        width, where the block's layers write theirs (``_DenseStream``). An
+        int8 or packed stream, or one in another dtype than the compute
+        dtype, is returned as it is."""
+        if (not isinstance(x, torch.Tensor) or x.dtype != self.compute_dtype
+                or width <= x.shape[-1]):
+            return x
+        buf = torch.empty((*x.shape[:-1], width), dtype=x.dtype,
+                          device=x.device)
+        buf[..., :x.shape[-1]].copy_(x)
+        return _DenseStream(buf, x.shape[-1])
+
     def concat(self, xs):
+        """``concat`` of the float views, except where a dense block's
+        stream meets the conv of the layer that reads it: the conv runs
+        into its slot, nothing is copied, and the concatenation is the next
+        stream over the same buffer (counted in ``concat.in_place`` too).
+        Any other output is concatenated by ``torch.cat``."""
+        if len(xs) == 2 and isinstance(xs[0], _DenseStream):
+            s, y = xs
+            if (isinstance(y, _DeferredBConv) and y.stream is s
+                    and y.pending()):
+                slot = s.slot(y.channels)
+                if slot is not None:
+                    y.materialize(out=slot)
+                    counts.count(concat)
+                    counts.count(concat, "in_place")
+                    return s.grow(y.channels)
         return concat([self._f(x) for x in xs])
 
     def activation(self, x, kind):
@@ -854,6 +938,7 @@ class PackedBuilder(_Base):
             return _BinaryStream(lambda: run("bitpacked"),
                                  lambda: run("float"), filters)
 
+        stream = x if isinstance(x, _DenseStream) else None
         x = self._f(x)
         if "out_scale" in a:
             # int8-output binary conv: the requantisation is folded into the
@@ -869,9 +954,11 @@ class PackedBuilder(_Base):
         k = lowering(*x.shape[:3], "float", "float", x.is_floating_point())
         if k == "residual":
             delta = a.get("tap_delta")
-            if x.shape[-1] == filters:
+            if x.shape[-1] == filters or stream is not None:
+                # A dense layer's conv waits for its concatenation.
                 return _DeferredBConv(x, pf, transform, params,
-                                      self.residual_block, upf, delta)
+                                      self.residual_block, upf, delta,
+                                      stream)
             return self._store(self.residual_block(
                 x, pf, transform, params, has_residual=False,
                 unpacked_filter=upf, tap_delta=delta))
@@ -1104,4 +1191,6 @@ def packed_apply(spec, layers, x, kernel="auto", compute_dtype=torch.bfloat16,
             out = out.to_float()
         elif isinstance(out, _DeferredBConv):
             out = out.materialize()
+        elif isinstance(out, _DenseStream):
+            out = out.value()
     return out

@@ -193,7 +193,13 @@ def _binary_densenet_forward(b, x, *, layers_per_block, reductions,
     # in-block binary conv and breaking training outright.
     x = b.conv_bn(x, initial_filters, 7, stride=2, name="stem_conv")
     x = b.max_pool(x, 3, 2)
+    channels = initial_filters
     for block_idx, n_layers in enumerate(layers_per_block):
+        if hasattr(b, "dense_block"):
+            # The width the block's concatenations grow the stream to, for
+            # a builder that lays the stream out once at that width (from
+            # the channels the zoo knows: an int8 stream has no shape).
+            x = b.dense_block(x, channels + n_layers * growth_rate)
         for i in range(n_layers):
             # Dense layer: sign -> binary 3x3 -> BN, concatenated.
             y = b.binary_conv_bn(x, growth_rate, 3, pad_value=1,

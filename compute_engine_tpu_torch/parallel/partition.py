@@ -200,6 +200,11 @@ class ShardedBuilder(PackedBuilder):
     def tp(self):
         return len(self.slots)
 
+    def dense_block(self, x, width):
+        """A dense block's stream stays as it is: its layers' outputs are
+        gathered from the slots and concatenated by copies."""
+        return x
+
     # -- copies between slots ------------------------------------------------
 
     def _broadcast(self, t, j):

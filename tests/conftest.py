@@ -28,6 +28,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long-running test (multi-process spawns)")
+    config.addinivalue_line("markers",
+                            "card: needs a CUDA card; skips without one")
 
 
 @pytest.fixture

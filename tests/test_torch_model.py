@@ -250,7 +250,8 @@ def test_other_topologies_match_jax_on_cpu(rng, forward, size):
 def test_densenet_counts_one_concatenation_a_dense_layer(monkeypatch):
     """``PackedBuilder`` counts each concatenation it launches in
     ``concat.launches``, eagerly, and into the ledger under
-    ``counts.recording`` (what a capture records and a replay adds)."""
+    ``counts.recording`` (what a capture records and a replay adds); those
+    done in place also in ``concat.in_place``: here all four."""
     from compute_engine_tpu_torch.kernels import counts
     from compute_engine_tpu_torch.models.builder import concat
     from compute_engine_tpu_torch.models.zoo import ModelSpec
@@ -260,12 +261,128 @@ def test_densenet_counts_one_concatenation_a_dense_layer(monkeypatch):
     layers = convert_model(spec, init_model(spec, seed=0))
     x = np.zeros((2, 32, 32, 3), np.float32)
     monkeypatch.setattr(concat, "launches", 0)
+    monkeypatch.setattr(concat, "in_place", 0)
     packed_apply(spec, layers, x, device="cpu")
-    assert concat.launches == 4
+    assert (concat.launches, concat.in_place) == (4, 4)
     with counts.recording() as ledger:
         packed_apply(spec, layers, x, device="cpu")
-    assert ledger == {(concat, "launches"): 4}
-    assert concat.launches == 4
+    assert ledger == {(concat, "launches"): 4, (concat, "in_place"): 4}
+    assert (concat.launches, concat.in_place) == (4, 4)
+
+
+@pytest.mark.parametrize("batch,size", [(2, 32), (1, 8)])
+@pytest.mark.parametrize("compute_dtype,kernel", [
+    (torch.bfloat16, "auto"), (torch.float32, "auto"),
+    (torch.bfloat16, "mxu")])
+def test_densenet_concatenates_in_place(monkeypatch, rng, compute_dtype,
+                                        kernel, batch, size):
+    """Each dense block's stream lies in one buffer as wide as the block's
+    final width (``PackedBuilder.dense_block``): every layer's block reads
+    the stream where it lies and writes its channels after it, so all four
+    concatenations of the tiny DenseNet are in place (``concat.in_place`` ==
+    ``concat.launches``) and its logits equal, bit for bit, those of the
+    same forward with in-place concatenation unavailable (``torch.cat`` at
+    every layer). Under ``kernel="mxu"`` no block runs: each concatenation
+    is a ``torch.cat``, none in place, the logits the same. At batch 1 on
+    8x8 images the second block's stream is one pixel, whose channel
+    prefix PyTorch counts as dense."""
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block_plain)
+    from compute_engine_tpu_torch.models.builder import (PackedBuilder,
+                                                         _Base, concat)
+    from compute_engine_tpu_torch.models.zoo import ModelSpec
+
+    spec = ModelSpec("m", _tiny_densenet, input_size=(size, size),
+                     num_classes=10)
+    layers = convert_model(spec, init_model(spec, seed=0, randomize_bn=True))
+    x = rng.normal(0, 1, (batch, size, size, 3)).astype(np.float32)
+    logits, seen = [], []
+
+    def block(x, *a, out=None, **kw):
+        seen[-1].append(out is not None)
+        return binary_residual_block_plain(x, *a, out=out, **kw)
+
+    for in_place in (True, False):
+        if not in_place:
+            monkeypatch.setattr(PackedBuilder, "dense_block",
+                                _Base.dense_block)
+        monkeypatch.setattr(concat, "launches", 0)
+        monkeypatch.setattr(concat, "in_place", 0)
+        seen.append([])
+        logits.append(packed_apply(spec, layers, x, kernel=kernel,
+                                   device="cpu", compute_dtype=compute_dtype,
+                                   return_logits=True, residual_block=block))
+        blocks = kernel == "auto"
+        assert (concat.launches, concat.in_place) == (
+            4, 4 if in_place and blocks else 0)
+    assert seen == ([[True] * 4, [False] * 4] if blocks else [[], []])
+    assert torch.equal(logits[0], logits[1])
+
+
+@pytest.mark.parametrize("pipeline", ["int8", "packed"])
+def test_densenet_dense_block_keeps_the_other_pipelines(monkeypatch, rng,
+                                                        pipeline):
+    """The true-int8 pipeline (its stream an ``Int8Tensor``, which has no
+    shape) and the packed domain (its dense layers packed streams) run the
+    tiny DenseNet with the dense block declared: each of the four
+    concatenations is a ``torch.cat``, none in place, and the logits equal
+    those with ``dense_block`` the no-op."""
+    from compute_engine_tpu_torch.models import calibrate_model
+    from compute_engine_tpu_torch.models.builder import (PackedBuilder,
+                                                         _Base, concat)
+    from compute_engine_tpu_torch.models.zoo import ModelSpec
+
+    spec = ModelSpec("m", _tiny_densenet, input_size=(32, 32),
+                     num_classes=10)
+    params = init_model(spec, seed=0, randomize_bn=True)
+    x = rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    kw = {}
+    if pipeline == "int8":
+        in_r, out_r = calibrate_model(spec, params, [x], with_outputs=True,
+                                      device="cpu")
+        layers = convert_model(spec, params, int8_ranges=in_r,
+                               int8_out_ranges=out_r)
+    else:
+        layers, kw = convert_model(spec, params), {"domain": "packed"}
+    logits = []
+    for declared in (True, False):
+        if not declared:
+            monkeypatch.setattr(PackedBuilder, "dense_block",
+                                _Base.dense_block)
+        monkeypatch.setattr(concat, "launches", 0)
+        monkeypatch.setattr(concat, "in_place", 0)
+        logits.append(packed_apply(spec, layers, x, device="cpu",
+                                   return_logits=True, **kw))
+        assert (concat.launches, concat.in_place) == (4, 0)
+    assert torch.equal(logits[0], logits[1])
+
+
+def test_densenet_in_place_replays_under_the_card_standins(monkeypatch, rng):
+    """Under the card stand-ins (a captured graph, replayed on the same
+    tensors), the tiny DenseNet's compiled forward equals its eager one, and
+    one replay counts four concatenations, all in place: the buffers and
+    slots the capture wrote are the ones the replay writes."""
+    import _torch_card_standins as standins
+
+    from compute_engine_tpu_torch.models.builder import concat
+    from compute_engine_tpu_torch.models.zoo import ModelSpec
+    from compute_engine_tpu_torch.runtime.compiled import CompiledForward
+
+    standins.install(monkeypatch)
+    spec = ModelSpec("m", _tiny_densenet, input_size=(32, 32),
+                     num_classes=10)
+    layers = convert_model(spec, init_model(spec, seed=0, randomize_bn=True))
+    interp = Interpreter(spec, layers, device="cpu", output_mode="logits")
+    xs = [rng.normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
+          for _ in range(2)]
+    want = [interp(x) for x in xs]
+    interp._compiled = CompiledForward(interp._forward, torch.device("cpu"))
+    interp(xs[1])  # warms up, captures
+    monkeypatch.setattr(concat, "launches", 0)
+    monkeypatch.setattr(concat, "in_place", 0)
+    got = [interp(x) for x in xs]
+    assert (concat.launches, concat.in_place) == (8, 8)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_binary_densenet45_takes_num_classes():

@@ -291,3 +291,77 @@ def test_plan_is_the_same_for_both_paddings(shape, itemsize):
     assert {k: v for k, v in zero.items() if k != "smem_bytes"} == {
         k: v for k, v in one.items() if k != "smem_bytes"}
     assert zero["smem_bytes"] - one["smem_bytes"] == 4 * (16 * 64 + 64 * 9)
+
+
+# -- strided operands: a channel prefix in, a channel slice out --------------
+
+# (n, h, w, c, width of the buffer, offset of out's slice, dtype): a dense
+# block's layer reads the stream's first c channels of a wider buffer and
+# writes its 64 channels after them; a ragged depth and a slice after a gap;
+# one pixel, whose channel slices PyTorch counts as dense.
+STRIDED_CASES = [(2, 6, 6, 64, 192, 64, "bfloat16"),
+                 (1, 5, 7, 96, 160, 96, "float32"),
+                 (3, 4, 4, 33, 128, 40, "bfloat16"),
+                 (2, 3, 5, 128, 256, 192, "float32"),
+                 (1, 1, 1, 64, 192, 64, "bfloat16")]
+
+
+@pytest.mark.parametrize("pad_value", [1, 0])
+@pytest.mark.parametrize("n,h,w,c,width,at,dtype", STRIDED_CASES)
+def test_block_reads_a_channel_prefix_and_writes_a_slice(
+        rng, n, h, w, c, width, at, dtype, pad_value):
+    """Without the add, the block reading ``buf[..., :c]`` and writing
+    ``out=buf[..., at:at + 64]`` leaves the buffer equal to the dense call
+    copied into place, every other channel untouched, at both paddings."""
+    x, pf, tr = _case(rng, n, h, w, c, c_out=64)
+    _, tp = _params(c, pad_value=pad_value)
+    dt = getattr(torch, dtype)
+    buf = torch.from_numpy(
+        rng.normal(0, 1, (n, h, w, width)).astype(np.float32)).to(dt)
+    buf[..., :c] = torch.from_numpy(x).to(dt)
+    want = buf.clone()
+    want[..., at:at + 64] = binary_residual_block(
+        buf[..., :c].contiguous(), _t(pf), tr, tp, has_residual=False)
+    got = binary_residual_block(buf[..., :c], _t(pf), tr, tp,
+                                has_residual=False,
+                                out=buf[..., at:at + 64])
+    assert got.data_ptr() == buf[..., at:].data_ptr()
+    assert torch.equal(buf, want)
+
+
+def _strided_refusals():
+    """(x, out, has_residual, the error's words) that the block refuses,
+    over a (2, 4, 4, 192) float32 buffer and a C = 64 input."""
+    buf = torch.zeros(2, 4, 4, 192)
+    return [
+        # a channel stride of 2 in x, then in out
+        (buf[..., :128:2], None, False, "x must be dense NHWC"),
+        (buf[..., :64], buf[..., 64::2], False, "out must be dense NHWC"),
+        # out of the wrong width, of the wrong dtype
+        (buf[..., :64], buf[..., 64:96], False, "out must be"),
+        (buf[..., :64], torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16),
+         False, "out must be"),
+        # out over the channels x reads
+        (buf[..., :64], buf[..., 32:96], False, "overlaps"),
+        # pixels that are not one row each
+        (buf[:, :2, :, :64].permute(0, 2, 1, 3), None, False,
+         "x must be dense NHWC"),
+        # a channel prefix under the add
+        (buf[..., :64], None, True, "residual forms"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_strided_refusals())))
+@pytest.mark.parametrize("version", ["wrapper", "plain"])
+def test_block_refuses_other_layouts(rng, case, version):
+    """Neither the wrapper nor the plain version copies an operand to make
+    it fit: a non-unit channel stride, an ``out`` of the wrong shape or
+    dtype or over the channels ``x`` reads, a layout that is not one row a
+    pixel, a channel prefix under the add: each raises."""
+    x, out, residual, words = _strided_refusals()[case]
+    _, pf, tr = _case(rng, 1, 1, 1, x.shape[-1], c_out=64)
+    _, tp = _params(x.shape[-1])
+    fn = (binary_residual_block if version == "wrapper"
+          else binary_residual_block_plain)
+    with pytest.raises(ValueError, match=words):
+        fn(x, _t(pf), tr, tp, has_residual=residual, out=out)
