@@ -31,6 +31,7 @@ that PackedBuilder reads are tensors on the run's device
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import numpy as np
 import torch
@@ -475,7 +476,35 @@ class ConvertBuilder(_Base):
         return L.apply_activation(y, activation)
 
 
-class _BinaryStream:
+class _Lazy:
+    """An activation that a layer hands on before it is a plain tensor: a
+    deferred conv, a packed-domain stream or an int8 tensor. Its consumer
+    decides what runs: one that takes floats reads ``to_float()``
+    (``_float_view``), and a forward that ends on it returns ``result()``
+    (``_result``)."""
+
+    channels: int
+
+    def to_float(self):
+        """The float view: what a layer that takes floats reads."""
+        raise NotImplementedError
+
+    def result(self):
+        """The forward's output, where the value is the model's last."""
+        return self.to_float()
+
+
+def _float_view(x):
+    """The float view of an activation, whichever form it takes."""
+    return x.to_float() if isinstance(x, _Lazy) else x
+
+
+def _result(x):
+    """A forward's output as ``packed_apply`` returns it."""
+    return x.result() if isinstance(x, _Lazy) else x
+
+
+class _BinaryStream(_Lazy):
     """Lazily materialised output of a binary layer (packed domain).
 
     LCE decides statically whether a binary op's output is consumed packed
@@ -484,6 +513,7 @@ class _BinaryStream:
     forward without lookahead, so the decision is made at the consumer: a
     binary layer returns this wrapper, and the representation the consumer
     pulls is the one that runs (memoised, so one consumer runs one conv).
+    A model that ends on one returns its packed words.
     """
 
     def __init__(self, packed_fn, float_fn, channels: int):
@@ -501,20 +531,27 @@ class _BinaryStream:
             self._float = self._float_fn()
         return self._float
 
+    result = packed
 
-class Int8Tensor:
+
+class Int8Tensor(_Lazy):
     """An int8 activation tensor with its symmetric scale (zero point 0).
 
     The unit of the true-int8 pipeline: a layer converted with an out_scale
     requantises to int8 and hands this wrapper to the next layer, which
     consumes the int8 values as they are, with no float round trip between
     consecutive int8 layers. Binary layers read signs straight off the int8
-    values (bit = v < 0, exact at zero point 0).
+    values (bit = v < 0, exact at zero point 0). A model that ends on one
+    returns it dequantised.
     """
 
     def __init__(self, values, scale: float):
         self.values = values
         self.scale = float(scale)
+
+    @property
+    def channels(self):
+        return self.values.shape[-1]
 
     def to_float(self):
         return self.values.to(torch.float32) * self.scale
@@ -549,58 +586,20 @@ concat.launches = 0
 concat.in_place = 0
 
 
-class _DenseStream:
-    """A dense block's stream where it lies: the first ``width`` channels of
-    ``buf``, one buffer as wide as the block's final width
-    (``PackedBuilder.dense_block``). A layer that reads the stream writes
-    its channels into the ``slot`` after them, and the concatenation of the
-    two is the next stream over the same buffer, with nothing copied. A
-    stream grows once: a second concatenation onto it would overwrite what
-    the first wrote there, so it copies as ``torch.cat`` does."""
-
-    def __init__(self, buf, width):
-        self.buf, self.width = buf, width
-        self.grown = False
-
-    @property
-    def shape(self):
-        return (*self.buf.shape[:-1], self.width)
-
-    def value(self):
-        return self.buf[..., :self.width]
-
-    def slot(self, channels):
-        """The ``channels`` channels after the stream, or None where they
-        do not fit or the stream has grown already."""
-        end = self.width + channels
-        if self.grown or end > self.buf.shape[-1]:
-            return None
-        return self.buf[..., self.width:end]
-
-    def grow(self, channels):
-        """The stream with its slot of ``channels`` channels, written."""
-        self.grown = True
-        return _DenseStream(self.buf, self.width + channels)
-
-
-class _DeferredBConv:
-    """A float-output binary conv whose execution waits for its consumer.
-
-    QuickNet's hot loop is ``x = add(x, binary_conv_bn(x, ...))``. When the
-    consumer is that residual add, the whole block runs as one fused kernel
-    call. Any other consumer calls ``materialize()``: before the fused add it
-    runs the same kernel without the add; after it, it returns
-    ``fused - x``, as the JAX package does, rather than a second conv that
-    could differ from the fused one by a rounding. A dense layer's conv
-    (``stream``: its input is a ``_DenseStream``) waits for its
-    concatenation, which runs it into its slot of the stream's buffer
-    (``materialize(out=)``).
+class _DeferredBConv(_Lazy):
+    """A float-output binary conv on the block kernel whose execution waits
+    for its consumer. QuickNet's ``x = add(x, binary_conv_bn(x, ...))`` runs
+    as one fused block (``fused_with``); a dense layer's ``concat([x,
+    binary_conv_bn(x, ...)])``, ``x`` the first channels of a wider buffer,
+    writes the conv's channels after them (``written_after``). Any other
+    consumer reads ``to_float()``: before a fused add the same kernel
+    without the add; after it ``fused - x``, as the JAX package does, rather
+    than a second conv that could differ from the fused one by a rounding.
     """
 
     def __init__(self, x, packed_filter, transform, params, block,
-                 unpacked_filter, tap_delta, stream=None):
+                 unpacked_filter, tap_delta):
         self.x = x
-        self.stream = stream
         self.channels = packed_filter.shape[0]
         self._args = (packed_filter, transform, params)
         self._block = block
@@ -608,31 +607,41 @@ class _DeferredBConv:
         self._value = None
         self._fused = None
 
-    def pending(self):
-        """True until the conv has run, fused or not."""
-        return self._value is None and self._fused is None
+    def _run(self, **kw):
+        return self._block(self.x, *self._args, **self._kw, **kw)
 
-    def materialize(self, out=None):
-        """The conv's output; run into ``out`` where the conv is still
-        pending."""
+    def to_float(self):
         if self._value is None:
-            if self._fused is not None:
-                self._value = self._fused - self.x.to(self._fused.dtype)
-            else:
-                kw = self._kw if out is None else dict(self._kw, out=out)
-                self._value = self._block(self.x, *self._args,
-                                          has_residual=False, **kw)
+            self._value = (self._fused - self.x.to(self._fused.dtype)
+                           if self._fused is not None
+                           else self._run(has_residual=False))
         return self._value
 
-    def fuses_with(self, other):
-        """True when ``add(other, self)`` is this conv's own residual add."""
-        return other is self.x and self._value is None
-
-    def fused_add(self):
+    def fused_with(self, other):
+        """``add(other, self)`` as one block, where ``other`` is the conv's
+        input and the conv has not run alone; else None."""
+        if other is not self.x or self._value is not None:
+            return None
         if self._fused is None:
-            self._fused = self._block(self.x, *self._args, has_residual=True,
-                                      **self._kw)
+            self._fused = self._run(has_residual=True)
         return self._fused
+
+    def written_after(self, stream, buf):
+        """``concat([stream, self])`` with nothing copied, where ``stream``
+        is the conv's input, the written first channels of ``buf``, and the
+        conv has not run: it runs into the channels after the stream, and
+        the result is the wider prefix of ``buf``. None where the conv's
+        channels do not fit or any of these does not hold."""
+        if (buf is None or stream is not self.x or self._value is not None
+                or self._fused is not None):
+            return None
+        width = stream.shape[-1]
+        end = width + self.channels
+        if end > buf.shape[-1]:
+            return None
+        self._value = self._run(has_residual=False,
+                                out=buf[..., width:end])
+        return buf[..., :end]
 
 
 class PackedBuilder(_Base):
@@ -705,17 +714,21 @@ class PackedBuilder(_Base):
         self.gemm = gemm
         self.domain = domain
         self._add_idx = 0
+        # The buffers ``dense_block`` laid out, each under the id of its
+        # newest stream (the first channels of it written so far), held for
+        # as long as that stream lives and no longer.
+        self._buffers = {}
 
-    def _f(self, x):
-        """The float view of a deferred conv, a binary stream or an int8
-        tensor."""
-        if isinstance(x, _DeferredBConv):
-            return x.materialize()
-        if isinstance(x, (_BinaryStream, Int8Tensor)):
-            return x.to_float()
-        if isinstance(x, _DenseStream):
-            return x.value()
-        return x
+    def _lay_out(self, stream, buf):
+        """Record ``stream``, the written first channels of ``buf``, as the
+        stream that the next layer of its dense block may write after."""
+        key, buffers = id(stream), self._buffers
+        buffers[key] = buf, weakref.ref(stream,
+                                        lambda _: buffers.pop(key, None))
+
+    def _buffer_of(self, stream):
+        """The buffer whose newest stream is ``stream``, or None."""
+        return self._buffers.get(id(stream), (None,))[0]
 
     def _store(self, y):
         """Materialise an inter-layer activation in the compute dtype."""
@@ -738,10 +751,10 @@ class PackedBuilder(_Base):
                 lambda: super(PackedBuilder, self).max_pool(
                     x.to_float(), pool_size, stride, padding),
                 x.channels)
-        return super().max_pool(self._f(x), pool_size, stride, padding)
+        return super().max_pool(_float_view(x), pool_size, stride, padding)
 
     def avg_pool(self, x, *a, **kw):
-        return super().avg_pool(self._f(x), *a, **kw)
+        return super().avg_pool(_float_view(x), *a, **kw)
 
     def flatten(self, x):
         if isinstance(x, Int8Tensor):
@@ -753,10 +766,10 @@ class PackedBuilder(_Base):
                 lambda: x.packed().reshape(x.packed().shape[0], -1),
                 lambda: super(PackedBuilder, self).flatten(x.to_float()),
                 -1)
-        return super().flatten(self._f(x))
+        return super().flatten(_float_view(x))
 
     def global_avg_pool(self, x):
-        return super().global_avg_pool(self._f(x))
+        return super().global_avg_pool(_float_view(x))
 
     def add(self, a, b):
         # Counted before the fused-add shortcut, so that every builder gives
@@ -764,8 +777,9 @@ class PackedBuilder(_Base):
         name = f"__add_{self._add_idx}"
         self._add_idx += 1
         for u, v in ((a, b), (b, a)):
-            if isinstance(v, _DeferredBConv) and v.fuses_with(u):
-                return v.fused_add()
+            if (isinstance(v, _DeferredBConv)
+                    and (fused := v.fused_with(u)) is not None):
+                return fused
         entry = self.layers.get(name)
         if (entry is not None and entry.get("kind") == "add"
                 and isinstance(a, Int8Tensor) and isinstance(b, Int8Tensor)):
@@ -776,45 +790,49 @@ class PackedBuilder(_Base):
             y = (a.values.to(torch.float32) * (a.scale / so)
                  + b.values.to(torch.float32) * (b.scale / so))
             return Int8Tensor(_to_int8(y), so)
-        return super().add(self._f(a), self._f(b))
+        return super().add(_float_view(a), _float_view(b))
 
     def dense_block(self, x, width):
         """A float stream entering a dense block that grows it to ``width``
         channels, stored once into the first channels of a buffer of that
-        width, where the block's layers write theirs (``_DenseStream``). An
-        int8 or packed stream, or one in another dtype than the compute
-        dtype, is returned as it is."""
+        width, where the block's layers write theirs: the stream goes on as
+        that channel prefix of the buffer. An int8 or packed stream, or one
+        in another dtype than the compute dtype, is returned as it is."""
         if (not isinstance(x, torch.Tensor) or x.dtype != self.compute_dtype
                 or width <= x.shape[-1]):
             return x
         buf = torch.empty((*x.shape[:-1], width), dtype=x.dtype,
                           device=x.device)
-        buf[..., :x.shape[-1]].copy_(x)
-        return _DenseStream(buf, x.shape[-1])
+        stream = buf[..., :x.shape[-1]]
+        stream.copy_(x)
+        self._lay_out(stream, buf)
+        return stream
 
     def concat(self, xs):
         """``concat`` of the float views, except where a dense block's
-        stream meets the conv of the layer that reads it: the conv runs
-        into its slot, nothing is copied, and the concatenation is the next
-        stream over the same buffer (counted in ``concat.in_place`` too).
-        Any other output is concatenated by ``torch.cat``."""
-        if len(xs) == 2 and isinstance(xs[0], _DenseStream):
+        newest stream meets the conv of the layer that reads it: the conv
+        runs into the channels after the stream and the concatenation is
+        the wider prefix of the buffer, nothing copied (counted in
+        ``concat.in_place`` too)."""
+        if len(xs) == 2 and isinstance(xs[1], _DeferredBConv):
             s, y = xs
-            if (isinstance(y, _DeferredBConv) and y.stream is s
-                    and y.pending()):
-                slot = s.slot(y.channels)
-                if slot is not None:
-                    y.materialize(out=slot)
-                    counts.count(concat)
-                    counts.count(concat, "in_place")
-                    return s.grow(y.channels)
-        return concat([self._f(x) for x in xs])
+            buf = self._buffer_of(s)
+            grown = y.written_after(s, buf)
+            if grown is not None:
+                # ``s`` has grown: another concatenation onto it would
+                # overwrite what ``y`` wrote, so it copies.
+                del self._buffers[id(s)]
+                self._lay_out(grown, buf)
+                counts.count(concat)
+                counts.count(concat, "in_place")
+                return grown
+        return concat([_float_view(x) for x in xs])
 
     def activation(self, x, kind):
-        return super().activation(self._f(x), kind)
+        return super().activation(_float_view(x), kind)
 
     def softmax(self, x):
-        x = self._f(x)
+        x = _float_view(x)
         if self.return_logits:
             return x.to(torch.float32)
         return super().softmax(x)
@@ -825,7 +843,7 @@ class PackedBuilder(_Base):
         An ``Int8Tensor`` is consumed as it is, at its producer's scale."""
         if isinstance(x, Int8Tensor):
             return x.values, x.scale
-        x = self._f(x).to(torch.float32)
+        x = _float_view(x).to(torch.float32)
         return _to_int8(x / _f32(a["in_scale"], x)), a["in_scale"]
 
     def _int8_out(self, acc, scale, a, activation, store=True):
@@ -863,7 +881,7 @@ class PackedBuilder(_Base):
             acc = L.conv2d_int8(x_q, a["kernel_int8"], _pair(stride), padding,
                                 groups=groups, dilation=_pair(dilation))
             return self._int8_out(acc, a["w_scale"] * in_s, a, activation)
-        y = L.conv2d(self._f(x).to(self.compute_dtype), a["kernel"],
+        y = L.conv2d(_float_view(x).to(self.compute_dtype), a["kernel"],
                      _pair(stride), padding, groups=groups,
                      dilation=_pair(dilation))
         y = y + a["bias"]
@@ -877,8 +895,8 @@ class PackedBuilder(_Base):
             acc = L.depthwise_conv2d_int8(x_q, a["kernel_int8"],
                                           _pair(stride))
             return self._int8_out(acc, a["w_scale"] * in_s, a, activation)
-        y = L.depthwise_conv2d(self._f(x).to(self.compute_dtype), a["kernel"],
-                               _pair(stride))
+        y = L.depthwise_conv2d(_float_view(x).to(self.compute_dtype),
+                               a["kernel"], _pair(stride))
         y = y + a["bias"]
         return self._store(L.apply_activation(y, activation))
 
@@ -886,7 +904,7 @@ class PackedBuilder(_Base):
         """A function giving the packed words of a binary layer's input."""
         if isinstance(x, _BinaryStream):
             return x.packed
-        x = self._f(x)
+        x = _float_view(x)
         return lambda: quantize(x)
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
@@ -938,8 +956,7 @@ class PackedBuilder(_Base):
             return _BinaryStream(lambda: run("bitpacked"),
                                  lambda: run("float"), filters)
 
-        stream = x if isinstance(x, _DenseStream) else None
-        x = self._f(x)
+        x = _float_view(x)
         if "out_scale" in a:
             # int8-output binary conv: the requantisation is folded into the
             # transform and the GEMM's int8 epilogue writes int8, which flows
@@ -954,11 +971,11 @@ class PackedBuilder(_Base):
         k = lowering(*x.shape[:3], "float", "float", x.is_floating_point())
         if k == "residual":
             delta = a.get("tap_delta")
-            if x.shape[-1] == filters or stream is not None:
-                # A dense layer's conv waits for its concatenation.
+            if x.shape[-1] == filters or self._buffer_of(x) is not None:
+                # A residual block's conv waits for its add, a dense
+                # layer's for its concatenation.
                 return _DeferredBConv(x, pf, transform, params,
-                                      self.residual_block, upf, delta,
-                                      stream)
+                                      self.residual_block, upf, delta)
             return self._store(self.residual_block(
                 x, pf, transform, params, has_residual=False,
                 unpacked_filter=upf, tap_delta=delta))
@@ -1010,7 +1027,7 @@ class PackedBuilder(_Base):
 
             return _BinaryStream(lambda: run("bitpacked"),
                                  lambda: run("float"), units)
-        x = self._f(x)
+        x = _float_view(x)
         kernel = self._dense_kernel("float", c_in, units, x.shape[0],
                                     "float")
         if kernel == "mxu":
@@ -1039,7 +1056,7 @@ class PackedBuilder(_Base):
             acc = L.dense_int8(x_q, a["kernel_int8"])
             return self._int8_out(acc, a["w_scale"] * in_s, a, activation,
                                   store=False)
-        y = L.dense(self._f(x).to(self.compute_dtype), a["kernel"])
+        y = L.dense(_float_view(x).to(self.compute_dtype), a["kernel"])
         if a["bias"] is not None:
             y = y + a["bias"]
         return L.apply_activation(y, activation)
@@ -1152,6 +1169,16 @@ def prepare_runtime_arrays(layers):
     return out
 
 
+@contextlib.contextmanager
+def _forward_scope(compute_dtype):
+    """The scope of a packed forward: inference mode, and exact float32
+    (TF32 off) for a float32 stream."""
+    with torch.inference_mode(), (
+            exact_float32() if compute_dtype == torch.float32
+            else contextlib.nullcontext()):
+        yield
+
+
 def packed_apply(spec, layers, x, kernel="auto", compute_dtype=torch.bfloat16,
                  return_logits=False, device="cuda",
                  residual_block=binary_residual_block, gemm=bgemm,
@@ -1181,16 +1208,6 @@ def packed_apply(spec, layers, x, kernel="auto", compute_dtype=torch.bfloat16,
                             return_logits=return_logits,
                             residual_block=residual_block, gemm=gemm,
                             domain=domain)
-    exact = (exact_float32() if compute_dtype == torch.float32
-             else contextlib.nullcontext())
-    with torch.inference_mode(), exact:
-        out = spec.forward(builder, x)
-        if isinstance(out, _BinaryStream):
-            out = out.packed()
-        elif isinstance(out, Int8Tensor):
-            out = out.to_float()
-        elif isinstance(out, _DeferredBConv):
-            out = out.materialize()
-        elif isinstance(out, _DenseStream):
-            out = out.value()
-    return out
+    with _forward_scope(compute_dtype):
+        return _result(spec.forward(builder, x))
+

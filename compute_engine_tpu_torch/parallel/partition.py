@@ -58,16 +58,14 @@ the first makes no copy of weights.
 
 from __future__ import annotations
 
-import contextlib
 from collections.abc import Mapping
 
 import torch
 
-from ..device import exact_float32
 from ..kernels.bgemm import bgemm
 from ..kernels.residual import binary_residual_block
 from ..models.builder import (Int8Tensor, PackedBuilder, _BinaryStream,
-                              _DeferredBConv)
+                              _float_view, _forward_scope, _result)
 from .collective import all_gather, record, to_slot
 from .sharding import ShardedTensor
 
@@ -249,11 +247,7 @@ class ShardedBuilder(PackedBuilder):
             return _BinaryStream(lambda: self._broadcast(x.packed(), j),
                                  lambda: self._broadcast(x.to_float(), j),
                                  x.channels)
-        return self._broadcast(self._f(x), j)
-
-    def _slot_float(self, j, y):
-        """A slot's float output, materialised."""
-        return self.slots[j]._f(y)
+        return self._broadcast(_float_view(x), j)
 
     # -- layers --------------------------------------------------------------
 
@@ -262,7 +256,7 @@ class ShardedBuilder(PackedBuilder):
                 or isinstance(x, Int8Tensor)):
             return super().conv_bn(x, filters, ksize, groups=groups,
                                    name=name, **kw)
-        xf = self._f(x)
+        xf = _float_view(x)
         return self._gather([
             sb.conv_bn(self._broadcast(xf, j), filters // self.tp, ksize,
                        groups=1, name=name, **kw)
@@ -271,7 +265,7 @@ class ShardedBuilder(PackedBuilder):
     def depthwise_conv_bn(self, x, ksize, *, name, **kw):
         if not self.group.sharded[name] or isinstance(x, Int8Tensor):
             return super().depthwise_conv_bn(x, ksize, name=name, **kw)
-        xf = self._f(x)
+        xf = _float_view(x)
         return self._gather([
             sb.depthwise_conv_bn(self._channel_slice(xf, j), ksize, name=name,
                                  **kw)
@@ -280,7 +274,7 @@ class ShardedBuilder(PackedBuilder):
     def dense(self, x, units, *, name, **kw):
         if not self.group.sharded[name] or isinstance(x, Int8Tensor):
             return super().dense(x, units, name=name, **kw)
-        xf = self._f(x)
+        xf = _float_view(x)
         return self._gather([
             sb.dense(self._broadcast(xf, j), units // self.tp, name=name,
                      **kw)
@@ -293,7 +287,7 @@ class ShardedBuilder(PackedBuilder):
         where each slot's are whole words."""
         if not packed:
             return self._gather([
-                self._slot_float(j, run_slot(j, self._slot_input(x, j)))
+                _float_view(run_slot(j, self._slot_input(x, j)))
                 for j in range(self.tp)])
         streams = [run_slot(j, self._slot_input(x, j))
                    for j in range(self.tp)]
@@ -335,26 +329,6 @@ class ShardedBuilder(PackedBuilder):
             packed)
 
 
-def _final(out):
-    """A forward's result as ``packed_apply`` returns it."""
-    if isinstance(out, _BinaryStream):
-        return out.packed()
-    if isinstance(out, Int8Tensor):
-        return out.to_float()
-    if isinstance(out, _DeferredBConv):
-        return out.materialize()
-    return out
-
-
-def _scope(compute_dtype):
-    """Inference mode, and exact float32 for a float32 forward."""
-    stack = contextlib.ExitStack()
-    stack.enter_context(torch.inference_mode())
-    if compute_dtype == torch.float32:
-        stack.enter_context(exact_float32())
-    return stack
-
-
 def group_apply(spec, group, x, kernel="auto", compute_dtype=torch.bfloat16,
                 residual_block=binary_residual_block, gemm=bgemm,
                 domain="float", log=None, links=None):
@@ -363,12 +337,12 @@ def group_apply(spec, group, x, kernel="auto", compute_dtype=torch.bfloat16,
     there. ``links`` (``collective.NcclLinks`` over the group's cards)
     joins the slots in place of copies; the other arguments are
     ``sharded_apply``'s."""
-    with _scope(compute_dtype):
+    with _forward_scope(compute_dtype):
         builder = ShardedBuilder(
             group, log=log, links=links, kernel=kernel,
             compute_dtype=compute_dtype, residual_block=residual_block,
             gemm=gemm, domain=domain)
-        return _final(spec.forward(builder, x))
+        return _result(spec.forward(builder, x))
 
 
 def sharded_apply(spec, sharded_layers, x, mesh, kernel="auto",
@@ -392,7 +366,7 @@ def sharded_apply(spec, sharded_layers, x, mesh, kernel="auto",
         raise ValueError(f"batch {x.shape[0]} not divisible by the mesh's "
                          f"data axis of size {dp}")
     per = x.shape[0] // dp
-    with _scope(compute_dtype):
+    with _forward_scope(compute_dtype):
         outs = [group_apply(spec, group,
                             x[d * per:(d + 1) * per].to(group.home,
                                                         non_blocking=True),

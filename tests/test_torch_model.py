@@ -357,6 +357,45 @@ def test_densenet_dense_block_keeps_the_other_pipelines(monkeypatch, rng,
     assert torch.equal(logits[0], logits[1])
 
 
+def _two_layers_onto_one_stream(b, x):
+    """Two dense layers read one stream and each is concatenated onto it:
+    only the first can write after it in place."""
+    x = b.conv_bn(x, 32, 3, stride=2, name="stem")
+    x = b.dense_block(x, 96)
+    y = b.binary_conv_bn(x, 32, 3, pad_value=1, name="layer_a")
+    z = b.binary_conv_bn(x, 32, 3, pad_value=1, name="layer_b")
+    first, second = b.concat([x, y]), b.concat([x, z])
+    x = b.global_avg_pool(b.concat([first, second]))
+    return b.softmax(b.dense(x, 10, name="head"))
+
+
+def test_densenet_second_concatenation_onto_a_stream_copies(monkeypatch,
+                                                            rng):
+    """A stream grows in place once: the first concatenation onto it writes
+    after it in its buffer, a second one onto the same stream is a
+    ``torch.cat`` (it would overwrite what the first wrote), and the logits
+    equal, bit for bit, those with in-place concatenation unavailable."""
+    from compute_engine_tpu_torch.models.builder import (PackedBuilder,
+                                                         _Base, concat)
+    from compute_engine_tpu_torch.models.zoo import ModelSpec
+
+    spec = ModelSpec("m", _two_layers_onto_one_stream, input_size=(16, 16),
+                     num_classes=10)
+    layers = convert_model(spec, init_model(spec, seed=2, randomize_bn=True))
+    x = rng.normal(0, 1, (2, 16, 16, 3)).astype(np.float32)
+    logits = []
+    for in_place in (1, 0):
+        if not in_place:
+            monkeypatch.setattr(PackedBuilder, "dense_block",
+                                _Base.dense_block)
+        monkeypatch.setattr(concat, "launches", 0)
+        monkeypatch.setattr(concat, "in_place", 0)
+        logits.append(packed_apply(spec, layers, x, device="cpu",
+                                   return_logits=True))
+        assert (concat.launches, concat.in_place) == (3, in_place)
+    assert torch.equal(logits[0], logits[1])
+
+
 def test_densenet_in_place_replays_under_the_card_standins(monkeypatch, rng):
     """Under the card stand-ins (a captured graph, replayed on the same
     tensors), the tiny DenseNet's compiled forward equals its eager one, and

@@ -349,6 +349,69 @@ def test_int8_artifact_runs_its_int8_layers_replicated():
     parity.assert_outputs_close(got, want, atol=1e-5)
 
 
+def _binary_trunk(b, x):
+    """Ends on a binary layer: in the packed domain, its packed words."""
+    x = b.conv_bn(x, 32, 3, stride=2, name="stem")
+    x = b.binary_conv_bn(x, 64, 3, pad_value=1, name="conv1")
+    return b.binary_conv_bn(x, 64, 3, pad_value=1, name="conv2")
+
+
+def _int8_trunk(b, x):
+    """Ends on an int8 layer of the true-int8 pipeline."""
+    x = b.conv_bn(x, 32, 3, stride=2, name="stem")
+    x = b.binary_conv_bn(x, 32, 3, pad_value=1, name="conv1")
+    return b.conv_bn(x, 16, 1, name="out")
+
+
+def _deferred_trunk(b, x):
+    """Ends on a block-kernel conv that waits for a consumer it never
+    gets."""
+    x = b.conv_bn(x, 32, 3, stride=2, name="stem")
+    return b.binary_conv_bn(x, 32, 3, pad_value=1, name="conv1")
+
+
+def _tiny_densenet(b, x):
+    from compute_engine_tpu_torch.models.zoo import _binary_densenet_forward
+
+    return _binary_densenet_forward(b, x, layers_per_block=(2, 2),
+                                    reductions=(2.0,), growth_rate=32,
+                                    initial_filters=32, num_classes=10)
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 1)])
+@pytest.mark.parametrize("forward, ends_on, domain, int8, out", [
+    (_binary_trunk, "_BinaryStream", "packed", False, (torch.int32, 2)),
+    (_int8_trunk, "Int8Tensor", "float", True, (torch.float32, 16)),
+    (_deferred_trunk, "_DeferredBConv", "float", False, (torch.float32, 32)),
+    (_tiny_densenet, "Tensor", "float", False, (torch.float32, 10))])
+def test_sharded_apply_returns_what_packed_apply_returns(
+        forward, ends_on, domain, int8, out, mesh_shape):
+    """Whatever the forward's last value is (a packed stream, an int8
+    tensor, a deferred conv, a tensor), ``sharded_apply`` over data groups
+    returns what ``packed_apply`` returns: the packed words, the
+    dequantised floats, the conv's output, the logits, bit for bit."""
+    from compute_engine_tpu_torch.interop import layers_from_numpy
+    from compute_engine_tpu_torch.models import builder as B
+    from compute_engine_tpu_torch.models.zoo import ModelSpec
+
+    spec = ModelSpec("m", forward, input_size=(16, 16), num_classes=10)
+    params = init_model(spec, seed=5, randomize_bn=True)
+    x = parity.images(14, 4, size=(16, 16))
+    ranges = (calibrate_model(spec, params, [x], with_outputs=True,
+                              device="cpu") if int8 else (None, None))
+    layers = prepare_runtime_arrays(convert_model(spec, params, *ranges))
+    kw = dict(compute_dtype=torch.float32, domain=domain)
+    with torch.inference_mode():
+        last = forward(B.PackedBuilder(layers_from_numpy(layers, "cpu"), **kw),
+                       torch.from_numpy(x))
+    assert type(last).__name__ == ends_on
+    want = packed_apply(spec, layers, x, device="cpu", **kw)
+    assert (want.dtype, want.shape[-1]) == out
+    mesh = make_mesh(mesh_shape, devices=["cpu"] * int(np.prod(mesh_shape)))
+    got = sharded_apply(spec, shard_artifact(layers, mesh), x, mesh, **kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 def test_sharded_forward_refuses_a_batch_the_data_axis_does_not_divide(
         tiny):
     spec, _, layers, _, _, _ = tiny
