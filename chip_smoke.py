@@ -39,7 +39,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      prefix of a wider buffer and writing its 64 channels into their slot,
      at BinaryDenseNet-45's 40 dense layers at batch 8 (float32 too at each
      block's first and last) and one at batch 128, the whole buffer equal;
-   ``--compare-only`` stops here. ``--zero-pad-only`` builds, runs the
+   - the stem kernel (``stem_compare``): the 7x7/2 conv and 3x3/2 max pool
+     of 224x224x3 images at batches 1, 8 and 128, float32 and bfloat16,
+     against its plain version and against the same stem with float64
+     sums, every output within one bf16 ulp or, where the sum cancels
+     near zero, within what reordering a float32 sum moves it
+     (``kernels.stem.within_tolerance``);
+   ``--compare-only`` stops here. ``--stem-only`` builds, runs the stem
+   comparisons in the default and the debug build, passes and trips the
+   stem's debug check, times the stem at b128 beside its plain chain and
+   cuDNN's conv and PyTorch's pool, drives Bi-RealNet-18,
+   BinaryDenseNet-45 and QuickNet b128 through ``Interpreter`` (1, 1 and 0
+   stem launches a forward; each forward beside the same with the stem's
+   plain version) and stops. ``--zero-pad-only`` builds, runs the
    zero-padded comparisons, times the zero-padded block at Bi-RealNet's
    b128 shapes beside the one-padded block and the lowerings it replaces,
    QuickNet's 16 one-padded blocks per forward, drives Bi-RealNet-18 b128
@@ -55,8 +67,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    block at every block size (warps, channel tiles per block) it can be
    launched with, at the QuickNet shapes, and stops: the choice in
    ``kernels/residual.py::_choose_blocks`` rests on it.
-   ``--kernel-times`` skips this phase, times both kernels at the main-path
-   shapes as phase 4 does, and stops; with ``--root DIR`` it takes the
+   ``--kernel-times`` skips this phase, times the block kernel and the
+   GEMM at the main-path shapes as phase 4 does and the stem beside its
+   yardsticks, and stops; with ``--root DIR`` it takes the
    package from another checkout, so that two commits are timed on one
    clock, one after the other (the ``*_MS_BEFORE`` constants below were).
 3. Drive the main paths, each with the launch counts set to 0 just before
@@ -294,6 +307,13 @@ BLOCKS_PER_SHAPE = 4  # QuickNet: 4 blocks in each of the four sections
 DENSE_BLOCKS = [(56, 64, 6), (28, 160, 12), (14, 256, 14), (7, 288, 8)]
 DENSE_GROWTH = 64
 DENSE_B128 = (56, 384, 448)  # the b128 case: block 0's last layer
+# The float stem of Bi-RealNet-18 and the BinaryDenseNets: 224x224x3 images,
+# a 7x7/2 conv to 64 channels, a 3x3/2 max pool (``kernels/stem.py``).
+STEM_IMAGE = (224, 224, 3)
+STEM_KERNEL = (7, 7, 3, 64)
+STEM_BATCHES = (1, 8, 128)
+# Launches of the stem kernel a forward, by zoo model.
+STEM_LAUNCHES = {"birealnet18": 1, "binary_densenet45": 1, "quicknet": 0}
 TOLERANCE = "torch.equal (bit for bit)"
 
 # BinaryAlexNet's binary GEMMs at batch 128 in the packed domain:
@@ -595,7 +615,9 @@ def kernel_times(rng, device, card):
     """The kernels alone at the main-path shapes, without yardsticks; the
     block kernel's time a b128 forward of QuickNet (16 blocks), of
     Bi-RealNet-18 (13 zero-padded blocks with their adds) and of
-    BinaryDenseNet-45 (40 dense layers on dense inputs)."""
+    BinaryDenseNet-45 (40 dense layers on dense inputs); the stem kernel
+    at b128 beside its plain chain and the library's conv and pool (a
+    checkout without the kernel times its chain alone)."""
     import torch
 
     from compute_engine_tpu_torch.core import BConv2DParams, Padding
@@ -634,6 +656,7 @@ def kernel_times(rng, device, card):
         print(f"[kernel-times] bgemm {name} M={m} KW={kw} N={n} {kind}: "
               f"{t['ms']:.4f} ms; enqueued from Python "
               f"{t['ms_enqueued_from_python']:.4f} ms [{card}]", flush=True)
+    stem_times(rng, device, card)
 
 
 def int8_quicknet(device, seed=0):
@@ -1506,6 +1529,197 @@ def dense_phase(dev, card):
     return {"dense_layers_ms": dense_ms,
             **{f"forward_ms.{k}": v["ms"] for k, v in runs.items()},
             **{f"busy_ms.{k}": v["busy_ms"] for k, v in runs.items()}}
+
+
+def stem_case(rng, batch, dev, dtype="float32"):
+    """Inputs of the stem: ``batch`` images of ``STEM_IMAGE`` in ``dtype``
+    (with exact +0.0 and -0.0 entries), a folded kernel and a bias."""
+    import numpy as np
+    import torch
+
+    x = rng.normal(0, 1, (batch, *STEM_IMAGE)).astype(np.float32)
+    x.reshape(-1)[::97] = 0.0
+    x.reshape(-1)[1::89] = -0.0
+    kernel = rng.normal(0, 0.15, STEM_KERNEL).astype(np.float32)
+    bias = rng.normal(0, 1, STEM_KERNEL[-1]).astype(np.float32)
+    return (torch.from_numpy(x).to(dev).to(getattr(torch, dtype)),
+            torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev))
+
+
+def stem_compare(rng, dev, checked=False):
+    """The stem kernel against its plain version (cuDNN's conv and
+    PyTorch's pool) and against its float64 sums (``stem_conv_pool_exact``),
+    at ``STEM_BATCHES`` for
+    float32 and bfloat16 images: every output within one bf16 ulp, or
+    beyond it only by what reordering a float32 sum moves it
+    (``stem.within_tolerance``). ``checked`` runs the debug build. Returns
+    the cases and the largest gap in ulps."""
+    import torch
+
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.kernels.stem import (
+        stem_conv_pool, stem_conv_pool_exact, stem_conv_pool_plain,
+        stem_filter, within_tolerance)
+
+    worst, cases = 0.0, 0
+    for batch in STEM_BATCHES:
+        for dtype in ("float32", "bfloat16"):
+            x, kernel, bias = stem_case(rng, batch, dev, dtype)
+            with debug_checks() if checked else contextlib.nullcontext():
+                got = stem_conv_pool(x, kernel, bias,
+                                     filter_bf16=stem_filter(kernel))
+                torch.cuda.synchronize()
+            for label, want in (("plain", stem_conv_pool_plain(x, kernel,
+                                                               bias)),
+                                ("float64", stem_conv_pool_exact(
+                                    x, kernel, bias))):
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"stem b{batch} {dtype}: {tuple(got.shape)} "
+                      f"{got.dtype} against {tuple(want.shape)}")
+                ok, ulps = within_tolerance(got, want, x, kernel, bias)
+                over = int((ulps > 1).sum())
+                check(bool(ok.all()), f"stem b{batch} {dtype} against the "
+                      f"{label} version{' (debug)' * checked}: "
+                      f"{int((~ok).sum())} outputs beyond the tolerance, "
+                      f"{ulps.max().item():.3g} ulps at most")
+                worst = max(worst, float(ulps.max()))
+                print(f"[compare] stem b{batch} {dtype} images"
+                      f"{' (debug build)' * checked} against the {label} "
+                      f"version: within tolerance; {int((ulps == 0).sum())}"
+                      f" of {ulps.numel()} equal, {over} beyond one ulp, "
+                      f"{ulps.max().item():.3g} ulps at most", flush=True)
+                cases += 1
+            del x, got
+    return cases, worst
+
+
+def stem_times(rng, dev, card, yardsticks=True):
+    """Milliseconds of the stem at b128 on float32 images, by CUDA-graph
+    replay: the kernel (with the filter prepared once, as the runtime does),
+    and with ``yardsticks`` its plain chain and ``library_ms``, cuDNN's
+    bf16 conv with its bias on the padded bf16 images then PyTorch's max
+    pool (no call of the port); and the bound."""
+    import torch
+
+    from compute_engine_tpu_torch.models import layers as L
+
+    x, kernel, bias = stem_case(rng, 128, dev)
+    n, h, w, c = x.shape
+    nbytes = x.numel() * 4 + n * (h // 4) * (w // 4) * 64 * 2
+    flops = 2 * n * (h // 2) * (w // 2) * 64 * 7 * 7 * c
+    times = {"ms": None, "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
+                                         flops / 989e12) * 1e3}
+    try:
+        from compute_engine_tpu_torch.kernels.stem import (stem_conv_pool,
+                                                           stem_filter)
+    except ImportError:  # a checkout before the kernel: its chain alone
+        stem_conv_pool = None
+    if stem_conv_pool is not None:
+        filt = stem_filter(kernel)
+        times["ms"] = time_ms(lambda: stem_conv_pool(
+            x, kernel, bias, filter_bf16=filt), reps=50)
+    if yardsticks:
+        # The packed builder's chain, as the plain version runs it, with the
+        # TF32 conv of PyTorch's default flags, as the benchmark's cells run.
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False, allow_tf32=True):
+            times["plain_ms"] = time_ms(lambda: L.max_pool(
+                (L.conv2d(x.to(torch.bfloat16), kernel, (2, 2), "SAME")
+                 + bias).to(torch.bfloat16), (3, 3), (2, 2), "SAME"), reps=10)
+        xp = torch.nn.functional.pad(
+            x.to(torch.bfloat16).permute(0, 3, 1, 2), (2, 3, 2, 3))
+        wb = kernel.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bb = bias.to(torch.bfloat16)
+        times["library_ms"] = time_ms(
+            lambda: torch.nn.functional.max_pool2d(
+                torch.nn.functional.conv2d(xp, wb, bb, stride=2), 3, 2,
+                padding=1), reps=50)
+    print(f"[stem-time] stem b128 float32 images: kernel "
+          f"{ms_text(times['ms'])}, bound {times['bound_ms']:.4f} ms (bytes)"
+          + (f", plain (TF32 conv) {times['plain_ms']:.4f} ms, library "
+             f"(cuDNN bf16 conv"
+             f" + max pool) {times['library_ms']:.4f} ms" if yardsticks
+             else "") + f" [{card}]", flush=True)
+    return times
+
+
+def stem_phase(dev, card):
+    """``--stem-only``: the stem kernel against its plain version and the
+    exact conv in the default and the debug build, its debug check passed
+    and tripped, its times at b128, and Bi-RealNet-18, BinaryDenseNet-45
+    and QuickNet at b128 through ``Interpreter``: the stem launches a
+    forward (``STEM_LAUNCHES``), and each forward beside the same forward
+    with the stem's plain version (logits' gap, ms a forward)."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.kernels import stem as stem_mod
+    from compute_engine_tpu_torch.models import (convert_model, get_model,
+                                                 init_model)
+    from compute_engine_tpu_torch.runtime import Interpreter
+
+    srng = np.random.default_rng(23)
+    cases, worst = stem_compare(srng, dev)
+    dcases, dworst = stem_compare(srng, dev, checked=True)
+    x, kernel, bias = stem_case(srng, 2, dev)
+    farthest = stem_mod.farthest_read(
+        stem_mod.plan_stem(*x.shape, *STEM_KERNEL[:2]), *STEM_KERNEL[:3])
+    with debug_checks():
+        stem_mod.stem_conv_pool(x, kernel, bias,
+                                _debug_patch_elems=farthest + 1)
+        torch.cuda.synchronize()
+        trip = expect_trip(lambda: stem_mod.stem_conv_pool(
+            x, kernel, bias, _debug_patch_elems=farthest), "stem")
+    print(f"[compare] stem debug build: silent at a patch of {farthest + 1} "
+          f"elements, tripped on purpose at {farthest}: {trip}", flush=True)
+    times = stem_times(srng, dev, card)
+
+    forwards = {}
+    kernel_fn = stem_mod.stem_conv_pool
+    for model, want in STEM_LAUNCHES.items():
+        spec = get_model(model)
+        layers = convert_model(spec, init_model(spec, seed=0,
+                                                randomize_bn=True))
+        xm = torch.from_numpy(srng.normal(0, 1, (128, 224, 224, 3)).astype(
+            np.float32)).to(dev)
+        runs = {}
+        for label in ("kernel", "plain"):
+            if label == "plain":
+                stem_mod.stem_conv_pool = (
+                    lambda *a, filter_bf16=None, **kw:
+                    stem_mod.stem_conv_pool_plain(*a, **kw))
+            try:
+                interp = Interpreter(spec, layers, output_mode="logits",
+                                     device=dev)
+                interp(xm)  # compiles
+                kernel_fn.launches = 0
+                logits = interp(xm).clone()
+                launches = kernel_fn.launches
+                ms = time_ms(lambda: interp(xm), reps=20, graph=False)
+                runs[label] = (logits, launches, ms)
+                del interp
+            finally:
+                stem_mod.stem_conv_pool = kernel_fn
+        (a, launches, ms), (b, plain_launches, plain_ms) = (runs["kernel"],
+                                                            runs["plain"])
+        check(launches == want and plain_launches == 0,
+              f"{model} b128: {launches} stem launches a forward, expected "
+              f"{want} ({plain_launches} with the plain version)")
+        agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+        gap = (a - b).abs().max().item()
+        print(f"[stem] {model} b128 Interpreter: {launches} stem launch(es) "
+              f"a forward; {ms:.4f} ms a forward against {plain_ms:.4f} ms "
+              f"with the stem's plain version (CUDA events, 20 calls); "
+              f"logits max |diff| {gap:.3g}, top-1 agreement {agree}/128 "
+              f"[{card}]", flush=True)
+        forwards[model] = {"launches": launches, "ms": ms,
+                           "plain_ms": plain_ms, "max_logit_gap": gap,
+                           "top1_agree": agree}
+    return {"compare_cases": cases + dcases,
+            "worst_ulps": max(worst, dworst), "times": times,
+            "forwards": forwards}
 
 
 def selection_phase(dev, card):
@@ -2836,7 +3050,9 @@ def main():
     # 1. Build.
     t0 = time.perf_counter()
     # The kernels' debug builds too (phase 7): one nvcc each, all at once.
-    logs = _build.build_all(debug=("bgemm", "residual_block"))
+    logs = _build.build_all(debug=tuple(
+        name for name in ("bgemm", "residual_block", "stem_conv_pool")
+        if name in _build.sources()))
     print(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in logs.items():
@@ -2890,6 +3106,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         return 0
     if "--dense-only" in args:
         print(json.dumps({"dense": dense_phase(dev, card)}))
+        return 0
+    if "--stem-only" in args:
+        print(json.dumps({"stem": stem_phase(dev, card)}))
         return 0
     if "--train-only" in args:
         models = TRAIN_MODELS
@@ -2965,6 +3184,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
               flush=True)
     zero_pad_compare(np.random.default_rng(17), dev)
     dense_compare(np.random.default_rng(45), dev)
+    stem_compare(np.random.default_rng(23), dev)
 
     gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0, "bgemm_int8": 0.0}
     gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})

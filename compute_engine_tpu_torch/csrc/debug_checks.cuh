@@ -12,8 +12,9 @@
 //
 // The overrides stand for the accounting bugs the checks guard against, so
 // that a test can trip each check on purpose: a declared bit count K (the
-// GEMM's total_bits, the block's 9 C) that is not what the kernel swept, and
-// a channel count for the bitpacked epilogue's votes that runs past N.
+// GEMM's total_bits, the block's 9 C) that is not what the kernel swept, or
+// a patch size (the stem's) that is not what it staged, and a channel count
+// for the bitpacked epilogue's votes that runs past N.
 
 #pragma once
 
@@ -28,10 +29,12 @@ enum Bit {
   kSplitKBound = 2,    // the same for a block of K, and for the reduced sum
   kPaddingBits = 4,    // no bit at or beyond N in a bitpacked output word
   kResidualBound = 8,  // |t| <= K = 9 C in the residual block
+  kStemPatch = 16,     // the stem reads no operand outside its staged patch
 };
 
 __device__ int error_word;
-__device__ int declared_bits;  // 0: the bits the kernel swept
+__device__ int declared_bits;  // 0: the bits the kernel swept (the stem:
+                               // the elements of its patch)
 __device__ int vote_n;         // 0: the kernel's own N
 
 __device__ __forceinline__ void fail(int bit) { atomicOr(&error_word, bit); }

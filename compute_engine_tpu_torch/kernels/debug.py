@@ -12,6 +12,11 @@ compiled out unless ``pl.enable_debug_checks()`` is on:
          the port packs by OR, not by matmul)
   bit 8  the residual block: ``|t| <= K = 9 C`` (``residual.py:118-120``)
 
+and the port adds one of its own kernel, which no Pallas kernel has:
+
+  bit 16 the stem (``kernels/stem.py``): every operand its implicit GEMM
+         reads lies inside the input patch it staged in shared memory
+
 Inside ``debug_checks()`` the wrappers load a build of each kernel with
 ``-DCE_DEBUG_CHECKS`` (a library of its own; the default build compiles
 none of the checks). A broken invariant sets its bit in an int32 error word
@@ -22,8 +27,9 @@ CUDA context unusable for the rest of the process. On CPU tensors the plain
 versions hold the same inequalities inside ``debug_checks()``.
 
 The wrappers' private overrides (``_debug_total_bits``, ``_debug_vote_n``,
-``_debug_k``) stand for the accounting bugs the checks guard against, so
-that a test trips each check on purpose; only a call inside
+``_debug_k``, ``_debug_patch_elems``) stand for the accounting bugs the
+checks guard against, so that a test trips each check on purpose; only a
+call inside
 ``debug_checks()`` takes them. ``_debug_vote_n`` breaks the GEMM kernel's
 vote loop and so exists on the card only; on the CPU a test widens the
 operands itself and holds the result to ``bgemm.check_padding_bits``.
@@ -54,6 +60,8 @@ CHECKS = {
        "invariant broken",
     8: "residual: |pm1 conv| > K — tap matrix or one-padding invariant "
        "broken",
+    16: "stem: an operand read outside the staged input patch — tap table "
+        "or tile geometry broken",
 }
 
 _ENABLED = contextvars.ContextVar("ce_debug_checks", default=False)

@@ -45,6 +45,7 @@ from ..core.types import Activation, Padding, round_half_away
 from ..device import exact_float32, resolve_device
 from ..interop import layers_from_numpy
 from ..kernels import counts
+from ..kernels import stem as _stem
 from ..kernels.bconv2d import (bconv2d_mxu_float_in, bconv2d_mxu_s2d,
                                bdense_mxu, bdense_mxu_float_in)
 from ..kernels.bgemm import bgemm
@@ -644,6 +645,32 @@ class _DeferredBConv(_Lazy):
         return buf[..., :end]
 
 
+class _DeferredStem(_Lazy):
+    """A float conv that the stem kernel takes (``kernels.stem.
+    stem_supported``: a 7x7/2 conv of the images to 64 channels, say) on a
+    bf16 stream, whose execution waits for its consumer. A 3x3/2 SAME max
+    pool of it is ``pooled()``, the conv and the pool in one kernel; any
+    other consumer reads ``to_float()``, the conv alone by the builder's
+    float chain. Each runs once."""
+
+    POOL = ((3, 3), (2, 2), "SAME")  # (pool_size, stride, padding)
+
+    def __init__(self, chain, conv_pool):
+        self.channels = _stem.C_OUT
+        self._chain, self._conv_pool = chain, conv_pool
+        self._value = self._pooled = None
+
+    def to_float(self):
+        if self._value is None:
+            self._value = self._chain()
+        return self._value
+
+    def pooled(self):
+        if self._pooled is None:
+            self._pooled = self._conv_pool()
+        return self._pooled
+
+
 class PackedBuilder(_Base):
     """Packed inference forward over runtime layers.
 
@@ -686,6 +713,13 @@ class PackedBuilder(_Base):
     whatever ``kernel`` says, and its residual add is the int8 ADD; a binary
     layer with int8 input takes no block kernel. Every other consumer takes
     the float view (``Int8Tensor.to_float``).
+
+    A float conv that the stem kernel takes (``kernels.stem``: at most 4
+    input channels, stride 2, SAME, 64 output channels, K <= 160; the 7x7
+    stem of Bi-RealNet-18 and the BinaryDenseNets) on a bf16 stream waits
+    for its consumer (``_DeferredStem``): a 3x3/2 SAME max pool runs with
+    it as one kernel, on the card the hand-written one; any other consumer
+    gets the float chain, as every other float conv does.
 
     ``domain="packed"``: binary layers chain through bitpacked activations
     (convert-time thresholds and sign-flipped filters), pooling and flatten
@@ -735,6 +769,11 @@ class PackedBuilder(_Base):
         return y.to(self.compute_dtype)
 
     def max_pool(self, x, pool_size, stride=None, padding="SAME"):
+        ps = _pair(pool_size)
+        st = _pair(stride) if stride is not None else ps
+        if isinstance(x, _DeferredStem) and (ps, st,
+                                             padding) == _DeferredStem.POOL:
+            return x.pooled()
         if isinstance(x, Int8Tensor):
             # max commutes with the positive scale: pool the int8 values.
             return Int8Tensor(
@@ -743,8 +782,6 @@ class PackedBuilder(_Base):
         if isinstance(x, _BinaryStream):
             # sign is monotonic, so max commutes with it: pooling the packed
             # words (bitwise AND) equals sign(float max pool).
-            ps = _pair(pool_size)
-            st = _pair(stride) if stride is not None else ps
             pad = Padding.SAME if padding == "SAME" else Padding.VALID
             return _BinaryStream(
                 lambda: bmaxpool2d(x.packed(), ps, st, pad),
@@ -881,11 +918,23 @@ class PackedBuilder(_Base):
             acc = L.conv2d_int8(x_q, a["kernel_int8"], _pair(stride), padding,
                                 groups=groups, dilation=_pair(dilation))
             return self._int8_out(acc, a["w_scale"] * in_s, a, activation)
-        y = L.conv2d(_float_view(x).to(self.compute_dtype), a["kernel"],
-                     _pair(stride), padding, groups=groups,
-                     dilation=_pair(dilation))
-        y = y + a["bias"]
-        return self._store(L.apply_activation(y, activation))
+        x = _float_view(x)
+
+        def chain():
+            y = L.conv2d(x.to(self.compute_dtype), a["kernel"], _pair(stride),
+                         padding, groups=groups, dilation=_pair(dilation))
+            y = y + a["bias"]
+            return self._store(L.apply_activation(y, activation))
+
+        if self.compute_dtype == torch.bfloat16 and _stem.stem_supported(
+                x, a["kernel"], _pair(stride), padding, groups,
+                _pair(dilation), activation):
+            bits = a.get("stem_filter")
+            return _DeferredStem(chain, lambda: _stem.stem_conv_pool(
+                x, a["kernel"], a["bias"], _pair(stride), activation,
+                filter_bf16=None if bits is None
+                else bits.view(torch.bfloat16)))
+        return chain()
 
     def depthwise_conv_bn(self, x, ksize, *, stride=1, activation=None,
                           name):
@@ -1133,6 +1182,11 @@ def prepare_runtime_arrays(layers):
       bconv:  ``filter_pm1`` (FH, FW, C, O)
       bdense: ``kernel_pm1`` (C, units)
 
+    to a conv that the stem kernel may take (``kernels.stem``: a (KH, KW,
+    C <= 4, 64) kernel with K <= 160), ``stem_filter`` (64, 160): the kernel
+    rounded to bf16 in the stem kernel's K order (``kernels.stem.
+    stem_filter``), held as its int16 bit patterns (numpy has no bf16),
+
     and, to a SAME zero-padded bconv, ``tap_delta`` (O, FH * FW) int32:
     what each out-of-image tap adds to each output channel's accumulator
     (``core.reference.zero_padding_tap_delta``), which the block kernel
@@ -1157,6 +1211,11 @@ def prepare_runtime_arrays(layers):
         elif a.get("kind") == "bdense" and "kernel_pm1" not in a:
             a["kernel_pm1"] = np.ascontiguousarray(
                 unpack(a["packed_kernel"], int(a["channels_in"])).T)
+        elif (a.get("kind") == "conv" and "kernel" in a
+              and "stem_filter" not in a
+              and _stem.takes_filter(np.shape(a["kernel"]))):
+            a["stem_filter"] = _stem.stem_filter(torch.as_tensor(
+                np.asarray(a["kernel"], np.float32))).view(torch.int16).numpy()
         if (a.get("kind") == "bconv" and "tap_delta" not in a
                 and a.get("padding", "SAME") == "SAME"
                 and int(a["pad_value"]) == 0):

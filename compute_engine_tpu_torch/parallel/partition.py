@@ -258,8 +258,8 @@ class ShardedBuilder(PackedBuilder):
                                    name=name, **kw)
         xf = _float_view(x)
         return self._gather([
-            sb.conv_bn(self._broadcast(xf, j), filters // self.tp, ksize,
-                       groups=1, name=name, **kw)
+            _float_view(sb.conv_bn(self._broadcast(xf, j), filters // self.tp,
+                                   ksize, groups=1, name=name, **kw))
             for j, sb in enumerate(self.slots)])
 
     def depthwise_conv_bn(self, x, ksize, *, name, **kw):
