@@ -30,6 +30,8 @@ enum Bit {
   kPaddingBits = 4,    // no bit at or beyond N in a bitpacked output word
   kResidualBound = 8,  // |t| <= K = 9 C in the residual block
   kStemPatch = 16,     // the stem reads no operand outside its staged patch
+  kTailOverlap = 32,   // the residual block's tail form stores on no channel
+                       // that it reads
 };
 
 __device__ int error_word;

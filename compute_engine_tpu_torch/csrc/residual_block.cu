@@ -1,5 +1,6 @@
 // Fused binary residual block for Hopper (sm_90a):
 //   out = x + cast(clip(2 * acc, cmin, cmax) * mul + bias)
+// (or, in the tail form, the add of x's last C_out channels)
 // where acc is the xor-popcount accumulator of the 3x3, stride-1, SAME
 // binary convolution of sign(x) (sign(0) = +1) with a bitpacked filter,
 // one-padded, or zero-padded where the caller passes a correction table.
@@ -63,15 +64,25 @@
 //    a pixel of out OS >= C_out after, so x may be a channel prefix of a
 //    wider NHWC buffer and out a channel slice of one. A dense block's layer
 //    reads the stream where it lies and writes its channels just after it,
-//    and nothing is concatenated. The add reads x at C (its forms need
+//    and nothing is concatenated. The add reads x at C (its form needs
 //    XS == C). The 16-byte paths need the strides and the slices' offsets in
 //    whole groups of 8 channels.
+//  * Tail form (tail_residual_block_kernel, MeliusNet's improvement block):
+//    the add reads the residual from x's own last C_out channels, at channel
+//    C - C_out and x's pixel stride, where C >= C_out:
+//      out = x[..., C - C_out:] + cast(clip(2 * acc) * mul + bias).
+//    Its result cannot go back into those channels: the launch reads them as
+//    other blocks' 3x3 neighbourhoods, so out lies apart from every channel
+//    x reads (the caller copies it into place). It is a kernel of its own
+//    name, the same body, so that a profile tells it from the other forms.
 //  * Registers are capped at 128 a thread (16 warps an SM), of which 64 are
 //    accumulators.
 //  * Debug build (-DCE_DEBUG_CHECKS, debug_checks.cuh): the invariant of the
 //    Pallas kernel's pl.debug_check (residual.py:118-120), |t| <= K = 9 C
 //    for the +-1 conv t of every output channel < C_out (the zero-padded t
-//    too), as a bit of an error word. The default build compiles none of it.
+//    too), as a bit of an error word; and in the tail form, that no store
+//    lands on a channel that x is read at. The default build compiles none
+//    of it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -216,15 +227,29 @@ __host__ __device__ constexpr int zero_pad_words() {
   return kZeroPad ? kPatterns * kBN + kBN * kTaps : 0;
 }
 
-template <typename T, bool kResidual, bool kZeroPad, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS, kMinWarps / WARPS)
-residual_block_kernel(const T* __restrict__ x,
-                      const uint32_t* __restrict__ filt,
-                      const float* __restrict__ mul,
-                      const float* __restrict__ bias,
-                      const int* __restrict__ delta, T* __restrict__ out,
-                      Shape s, int tiles_per_block, int cmin, int cmax,
-                      int vec_x, int vec_f, int vec_out) {
+// Whether a store of n elements at dst lands on a channel that x is read
+// at: [pix XS, pix XS + C) of each of its N H W pixels.
+template <typename T>
+__device__ __forceinline__ bool writes_read_channel(const T* x, const T* dst,
+                                                    int n, const Shape& s) {
+  const long long span = (long long)(s.N * s.H * s.W - 1) * s.XS + s.C;
+  for (int j = 0; j < n; ++j) {
+    const long long d = (long long)(dst - x) + j;
+    if (d >= 0 && d < span && d % s.XS < s.C) return true;
+  }
+  return false;
+}
+
+// The block's body; kTail adds the residual from x's last C_out channels
+// (needs kResidual).
+template <typename T, bool kResidual, bool kTail, bool kZeroPad, int WARPS>
+__device__ __forceinline__ void block_body(
+    const T* __restrict__ x, const uint32_t* __restrict__ filt,
+    const float* __restrict__ mul, const float* __restrict__ bias,
+    const int* __restrict__ delta, T* __restrict__ out, const Shape& s,
+    int tiles_per_block, int cmin, int cmax, int vec_x, int vec_f,
+    int vec_out) {
+  static_assert(kResidual || !kTail, "the tail form adds a residual");
   constexpr int kThreads = 32 * WARPS, BM = 16 * kMT * WARPS;
   constexpr int NB = kNT / WARPS;  // column tiles whose popcounts a warp adds
   static_assert(NB * WARPS == kNT, "the warps share out the column tiles");
@@ -473,6 +498,9 @@ residual_block_kernel(const T* __restrict__ x,
     // m of the block is band position m + W + 3. The reads of x for the add
     // go first, kStoreLoads of them in flight.
     constexpr int kItems = BM * (kBN / 8);
+    // The residual: x's first channels at C, or its last C_out at XS.
+    const T* res = kTail ? x + (s.C - s.CO) : x;
+    const int rs = kTail ? s.XS : s.C;
     for (int base = tid; base < kItems; base += kThreads * kStoreLoads) {
       Vec8<T> xv[kStoreLoads];
       size_t pix[kStoreLoads];
@@ -486,7 +514,7 @@ residual_block_kernel(const T* __restrict__ x,
         ok[u] = px >= 0 && co < s.CO;
         pix[u] = ok[u] ? (size_t)px : 0;
         if (kResidual && vec_out && ok[u])
-          xv[u] = load8(x + pix[u] * s.C + co);
+          xv[u] = load8(res + pix[u] * rs + co);
       }
 #pragma unroll
       for (int u = 0; u < kStoreLoads; ++u) {
@@ -495,6 +523,10 @@ residual_block_kernel(const T* __restrict__ x,
         const int c = 8 * (item % (kBN / 8)), co = co0 + c;
         const T* y = stage + (item / (kBN / 8)) * kStageStride + c;
         T* dst = out + pix[u] * s.OS + co;
+#ifdef CE_DEBUG_CHECKS
+        if (kTail && writes_read_channel(x, dst, min(8, s.CO - co), s))
+          ce_debug::fail(ce_debug::kTailOverlap);
+#endif
         if (vec_out) {
           Vec8<T> v = load8(y);
           if (kResidual) {
@@ -509,7 +541,7 @@ residual_block_kernel(const T* __restrict__ x,
         } else {
           for (int j = 0; j < 8 && co + j < s.CO; ++j)
             dst[j] = kResidual
-                ? from_float<T>(__fadd_rn(to_float(x[pix[u] * s.C + co + j]),
+                ? from_float<T>(__fadd_rn(to_float(res[pix[u] * rs + co + j]),
                                           to_float(y[j])))
                 : y[j];
         }
@@ -517,6 +549,33 @@ residual_block_kernel(const T* __restrict__ x,
     }
   }
 }
+
+#define CE_BLOCK_ARGS                                                        \
+  const T* __restrict__ x, const uint32_t* __restrict__ filt,                \
+      const float* __restrict__ mul, const float* __restrict__ bias,         \
+      const int* __restrict__ delta, T* __restrict__ out, Shape s,           \
+      int tiles_per_block, int cmin, int cmax, int vec_x, int vec_f,         \
+      int vec_out
+
+// The forms without an add and with the add of x itself.
+template <typename T, bool kResidual, bool kZeroPad, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, kMinWarps / WARPS)
+residual_block_kernel(CE_BLOCK_ARGS) {
+  block_body<T, kResidual, false, kZeroPad, WARPS>(
+      x, filt, mul, bias, delta, out, s, tiles_per_block, cmin, cmax, vec_x,
+      vec_f, vec_out);
+}
+
+// The tail form: the add of x's last C_out channels.
+template <typename T, bool kZeroPad, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, kMinWarps / WARPS)
+tail_residual_block_kernel(CE_BLOCK_ARGS) {
+  block_body<T, true, true, kZeroPad, WARPS>(
+      x, filt, mul, bias, delta, out, s, tiles_per_block, cmin, cmax, vec_x,
+      vec_f, vec_out);
+}
+
+#undef CE_BLOCK_ARGS
 
 // Shared memory of a block, in bytes: filter tile, staged outputs, band,
 // offset table, column popcounts, pixel of each band position, and the
@@ -531,7 +590,7 @@ size_t shared_bytes(const Shape& s) {
       sizeof(T) * (size_t)BM * kStageStride;
 }
 
-template <typename T, bool kResidual, bool kZeroPad, int WARPS>
+template <typename T, bool kResidual, bool kTail, bool kZeroPad, int WARPS>
 int launch(const void* x, const void* filt, const void* mul, const void* bias,
            const void* delta, void* out, const Shape& s, int tiles_per_block,
            int plan_blocks, int plan_smem_bytes, int cmin, int cmax,
@@ -554,7 +613,8 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
   const int vec_out =
       s.CO % 8 == 0 && s.OS % 8 == 0 && aligned(out) && (!kResidual || vec_x);
 
-  auto kernel = residual_block_kernel<T, kResidual, kZeroPad, WARPS>;
+  auto kernel = kTail ? tail_residual_block_kernel<T, kZeroPad, WARPS>
+                      : residual_block_kernel<T, kResidual, kZeroPad, WARPS>;
   // Raised once per instantiation and device: the attribute is the current
   // device's.
   static size_t allowed[kMaxDevices] = {};
@@ -577,26 +637,27 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kResidual, bool kZeroPad>
+template <typename T, bool kResidual, bool kTail, bool kZeroPad>
 int launch_warps(int warps, const void* x, const void* filt, const void* mul,
                  const void* bias, const void* delta, void* out,
                  const Shape& s, int tiles, int blocks, int smem_bytes,
                  int cmin, int cmax, cudaStream_t stream) {
   if (warps == 8)
-    return launch<T, kResidual, kZeroPad, 8>(x, filt, mul, bias, delta, out, s,
-                                             tiles, blocks, smem_bytes, cmin,
-                                             cmax, stream);
+    return launch<T, kResidual, kTail, kZeroPad, 8>(
+        x, filt, mul, bias, delta, out, s, tiles, blocks, smem_bytes, cmin,
+        cmax, stream);
   if (warps == 4)
-    return launch<T, kResidual, kZeroPad, 4>(x, filt, mul, bias, delta, out, s,
-                                             tiles, blocks, smem_bytes, cmin,
-                                             cmax, stream);
-  return launch<T, kResidual, kZeroPad, 2>(x, filt, mul, bias, delta, out, s,
-                                           tiles, blocks, smem_bytes, cmin,
-                                           cmax, stream);
+    return launch<T, kResidual, kTail, kZeroPad, 4>(
+        x, filt, mul, bias, delta, out, s, tiles, blocks, smem_bytes, cmin,
+        cmax, stream);
+  return launch<T, kResidual, kTail, kZeroPad, 2>(
+      x, filt, mul, bias, delta, out, s, tiles, blocks, smem_bytes, cmin,
+      cmax, stream);
 }
 
+// residual: 0 none, 1 x itself, 2 x's last c_out channels (the tail form).
 template <typename T>
-int launch_form(bool residual, bool zero_pad, int warps, const void* x,
+int launch_form(int residual, bool zero_pad, int warps, const void* x,
                 const void* filt, const void* mul, const void* bias,
                 const void* delta, void* out, const Shape& s, int tiles,
                 int blocks, int smem_bytes, int cmin, int cmax,
@@ -606,10 +667,12 @@ int launch_form(bool residual, bool zero_pad, int warps, const void* x,
                     smem_bytes, cmin, cmax, stream);
   };
   if (zero_pad)
-    return residual ? run(launch_warps<T, true, true>)
-                    : run(launch_warps<T, false, true>);
-  return residual ? run(launch_warps<T, true, false>)
-                  : run(launch_warps<T, false, false>);
+    return residual == 2 ? run(launch_warps<T, true, true, true>)
+         : residual == 1 ? run(launch_warps<T, true, false, true>)
+                         : run(launch_warps<T, false, false, true>);
+  return residual == 2 ? run(launch_warps<T, true, true, false>)
+       : residual == 1 ? run(launch_warps<T, true, false, false>)
+                       : run(launch_warps<T, false, false, false>);
 }
 
 }  // namespace
@@ -619,8 +682,10 @@ int launch_form(bool residual, bool zero_pad, int warps, const void* x,
 // each filter tap (core/reference.py::zero_padding_tap_delta). x_stride and
 // out_stride: the elements from one pixel to the next in x (at least c) and
 // in out (at least c_out), each a channel slice of a wider NHWC row where it
-// exceeds its channels; the residual forms read x for the add at c and need
-// x_stride == c. The launch
+// exceeds its channels. has_residual: 0 no add; 1 the add of x, which reads
+// x at c and needs c == c_out and x_stride == c; 2 the tail form, the add of
+// x's last c_out channels (c >= c_out), whose out must lie apart from every
+// channel x is read at. The launch
 // plan is the caller's (kernels/residual.py::plan_residual_block): warps, 2,
 // 4 or 8 a block, 32 output positions each; tiles_per_block, the tiles of 64
 // output channels that a block computes from its band; and the number of
@@ -636,7 +701,9 @@ extern "C" int ce_residual_block(const void* x, const void* filt,
                                  int tiles_per_block, int blocks,
                                  int smem_bytes, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c_out <= 0 ||
-      (has_residual && (c != c_out || x_stride != c)) || x_stride < c ||
+      has_residual < 0 || has_residual > 2 ||
+      (has_residual == 1 && (c != c_out || x_stride != c)) ||
+      (has_residual == 2 && c < c_out) || x_stride < c ||
       out_stride < c_out || (dtype != 0 && dtype != 1) ||
       (warps != 2 && warps != 4 && warps != 8) || tiles_per_block < 1 ||
       blocks < 1 || smem_bytes < 1 ||
@@ -659,7 +726,7 @@ extern "C" int ce_residual_block(const void* x, const void* filt,
   s.groups_magic = (uint32_t)(0x100000000ULL / (4 * s.CW)) + 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto form = dtype == 0 ? launch_form<float> : launch_form<__nv_bfloat16>;
-  return form(has_residual != 0, tap_delta != nullptr, warps, x, filt, mul,
+  return form(has_residual, tap_delta != nullptr, warps, x, filt, mul,
               bias, tap_delta, out, s, tiles_per_block, blocks, smem_bytes,
               clamp_min, clamp_max, st);
 }

@@ -40,7 +40,8 @@ __all__ = ["plan", "measure", "cell_label", "main"]
 # Main-path models first: their layers are measured at their own keys.
 MODEL_ORDER = ("quicknet", "binary_alexnet", "quicknet_small",
                "quicknet_large", "birealnet18", "binary_resnet_e18",
-               "binary_densenet28", "binary_densenet37", "binary_densenet45")
+               "binary_densenet28", "binary_densenet37", "binary_densenet45",
+               "meliusnet22")
 BATCHES = (128, 1, 8)
 _SHAPE_KEYS = ("h", "w", "c_in", "c_out", "fh", "fw", "stride", "padding",
                "pad_value")

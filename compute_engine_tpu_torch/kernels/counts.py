@@ -4,7 +4,9 @@ Each wrapper keeps a plain integer count of its launches on itself
 (``binary_residual_block.launches``, ``bgemm.launches``,
 ``bgemm.splitk_launches``; the model builder's channel concatenation,
 ``models.builder.concat.launches``, and of those the ones done in place,
-with nothing copied, ``concat.in_place``), so that a run can show which kernels
+with nothing copied, ``concat.in_place``; its tail add,
+``models.builder.add_tail.launches``, and of those the ones the block kernel
+fused, ``add_tail.fused``), so that a run can show which kernels
 its path went through. Eagerly a wrapper adds one where it launches. While
 a CUDA graph is captured nothing runs: the wrappers of the capturing thread
 write into a ledger instead (``recording``), and whoever replays the graph

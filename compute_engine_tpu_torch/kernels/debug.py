@@ -16,6 +16,8 @@ and the port adds one of its own kernel, which no Pallas kernel has:
 
   bit 16 the stem (``kernels/stem.py``): every operand its implicit GEMM
          reads lies inside the input patch it staged in shared memory
+  bit 32 the residual block's tail form (``kernels/residual.py``): no
+         store lands on a channel that the launch reads ``x`` at
 
 Inside ``debug_checks()`` the wrappers load a build of each kernel with
 ``-DCE_DEBUG_CHECKS`` (a library of its own; the default build compiles
@@ -27,9 +29,9 @@ CUDA context unusable for the rest of the process. On CPU tensors the plain
 versions hold the same inequalities inside ``debug_checks()``.
 
 The wrappers' private overrides (``_debug_total_bits``, ``_debug_vote_n``,
-``_debug_k``, ``_debug_patch_elems``) stand for the accounting bugs the
-checks guard against, so that a test trips each check on purpose; only a
-call inside
+``_debug_k``, ``_debug_patch_elems``, ``_debug_overlap``) stand for the
+accounting bugs the checks guard against, so that a test trips each check
+on purpose; only a call inside
 ``debug_checks()`` takes them. ``_debug_vote_n`` breaks the GEMM kernel's
 vote loop and so exists on the card only; on the CPU a test widens the
 operands itself and holds the result to ``bgemm.check_padding_bits``.
@@ -62,6 +64,8 @@ CHECKS = {
        "broken",
     16: "stem: an operand read outside the staged input patch — tap table "
         "or tile geometry broken",
+    32: "residual tail form: a store on a channel the launch reads — the "
+        "output overlaps its input",
 }
 
 _ENABLED = contextvars.ContextVar("ce_debug_checks", default=False)

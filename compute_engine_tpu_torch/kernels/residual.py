@@ -38,6 +38,16 @@ tensors' ``stride()``, so a dense block's layer reads its stream in place
 and writes its channels after it (``models.builder.PackedBuilder.
 dense_block``). Any other layout raises; nothing is copied to make it fit.
 
+The tail form (``has_residual="tail"``, MeliusNet's improvement block) adds
+the residual from ``x``'s own last C_out channels, ``x[..., C - C_out:]``,
+where C >= C_out and ``x`` may be a channel prefix as above. Its result
+cannot be written over those channels: the launch reads them as other
+positions' 3x3 neighbourhoods, so ``out`` (a new tensor where not given)
+lies apart from every channel ``x`` reads, and the caller moves it into
+place. It is its own kernel, ``tail_residual_block_kernel``; its debug
+build also checks that no store lands on a channel the launch reads (bit
+32).
+
 Inside ``kernels.debug_checks()`` the kernel's debug build runs, and the
 plain version checks, the Pallas kernel's debug invariant ``|t| <= K``
 (K = 9 C) for the +-1 conv ``t`` (``kernels/debug.py``).
@@ -69,17 +79,29 @@ _STAGE_STRIDE = _BLOCK_CHANNELS + 8
 _ZERO_PAD_WORDS = 16 * _BLOCK_CHANNELS + 9 * _BLOCK_CHANNELS
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FORM_CODES = {"none": 0, "own": 1, "tail": 2}
+
+
+def _form(has_residual) -> str:
+    """``has_residual`` as the block's form: "none", "own" (the add of
+    ``x``) or "tail" (the add of ``x``'s last C_out channels)."""
+    if not isinstance(has_residual, str):
+        return "own" if has_residual else "none"
+    if has_residual != "tail":
+        raise ValueError(f"has_residual must be True, False or 'tail', not "
+                         f"{has_residual!r}")
+    return "tail"
 
 
 def residual_block_supported(x_shape, params: BConv2DParams, c_out: int,
-                             fh: int, fw: int, has_residual: bool = True
-                             ) -> bool:
+                             fh: int, fw: int, has_residual=True) -> bool:
     """Static conditions under which the fused kernel applies: a 3x3,
-    stride-1, undilated, ungrouped conv with SAME padding (one or zero), and
-    as many output channels as input channels when the residual is
-    added."""
-    c = x_shape[-1]
-    if (fh, fw) != (3, 3) or (has_residual and c != c_out):
+    stride-1, undilated, ungrouped conv with SAME padding (one or zero); as
+    many output channels as input channels when ``x`` itself is added, and
+    at least as many input channels when its tail is (``"tail"``)."""
+    c, form = x_shape[-1], _form(has_residual)
+    if ((fh, fw) != (3, 3) or (form == "own" and c != c_out)
+            or (form == "tail" and c < c_out)):
         return False
     return (params.groups == 1 and params.stride == (1, 1)
             and params.dilation == (1, 1)
@@ -91,20 +113,32 @@ def binary_residual_block_plain(x, packed_filter, transform: OutputTransform,
                                 unpacked_filter=None, tap_delta=None,
                                 _debug_k=None, out=None):
     """Plain PyTorch version: the unfused conv, rounded to ``x.dtype``, plus
-    ``x``; zero padding is the integer conv's own (``tap_delta`` is not
-    read). ``x`` and ``out`` take the layouts the kernel takes
-    (``_pixel_strides``); the result is written into ``out`` where it is
-    given. Inside ``kernels.debug_checks()`` it also holds ``|t| <= K``
-    (``_debug_k`` declares a K other than 9 C, as the kernel's does)."""
-    _pixel_strides(x, packed_filter.shape[0], has_residual, out)
+    ``x`` (``"tail"``: plus ``x``'s last C_out channels); zero padding is
+    the integer conv's own (``tap_delta`` is not read). ``x`` and ``out``
+    take the layouts the kernel takes (``_pixel_strides``); the result is
+    written into ``out`` where it is given. Inside ``kernels.
+    debug_checks()`` it also holds ``|t| <= K`` (``_debug_k`` declares a K
+    other than 9 C, as the kernel's does)."""
+    c_out = packed_filter.shape[0]
+    _check_tail(x, c_out, has_residual)
+    _pixel_strides(x, c_out, has_residual, out)
     debug.require_enabled(_debug_k=_debug_k)
     if debug.enabled():
         _check_conv_bound(x, packed_filter, params, unpacked_filter, _debug_k)
     y = bconv2d_mxu_float_in(x, packed_filter, transform, params,
                              output_kind="float",
                              unpacked_filter=unpacked_filter).to(x.dtype)
-    y = x + y if has_residual else y
+    form = _form(has_residual)
+    if form != "none":
+        y = (x if form == "own" else x[..., x.shape[-1] - c_out:]) + y
     return y if out is None else out.copy_(y)
+
+
+def _check_tail(x, c_out, has_residual):
+    """Raise where the tail form would add more channels than ``x`` has."""
+    if _form(has_residual) == "tail" and x.shape[-1] < c_out:
+        raise ValueError(f"the tail form adds x's last {c_out} channels: x "
+                         f"has {x.shape[-1]}")
 
 
 def _pixel_stride(t, name):
@@ -126,17 +160,18 @@ def _pixel_stride(t, name):
                      f"strides {t.stride()}")
 
 
-def _pixel_strides(x, c_out, has_residual=True, out=None):
+def _pixel_strides(x, c_out, has_residual=True, out=None, overlap=False):
     """(x's pixel stride, out's): the layouts the block takes. ``x`` is
-    dense NHWC or a channel slice of a dense NHWC tensor (the residual
-    forms, which read ``x`` again for the add, take it dense); ``out``,
-    where given, the (N, H, W, C_out) result in ``x``'s dtype on its device,
-    laid out likewise and apart from the channels ``x`` reads. Raises
-    ``ValueError`` for any other operand: nothing is copied to fit."""
+    dense NHWC or a channel slice of a dense NHWC tensor (the add of ``x``
+    itself takes it dense; the tail form reads its last channels at its
+    stride); ``out``, where given, the (N, H, W, C_out) result in ``x``'s
+    dtype on its device, laid out likewise and apart from the channels ``x``
+    reads (``overlap`` lets a debug test through). Raises ``ValueError`` for
+    any other operand: nothing is copied to fit."""
     xs = _pixel_stride(x, "x")
-    if has_residual and xs != x.shape[-1]:
-        raise ValueError("the residual forms read x for the add: x must be "
-                         "dense")
+    if _form(has_residual) == "own" and xs != x.shape[-1]:
+        raise ValueError("the residual forms that add x itself read it "
+                         "again: x must be dense")
     if out is None:
         return xs, c_out
     want = (*x.shape[:-1], c_out)
@@ -153,7 +188,8 @@ def _pixel_strides(x, c_out, has_residual=True, out=None):
         x0, o0 = x.storage_offset(), out.storage_offset()
         one_row = x.shape[:-1].numel() == 1 or (
             xs == os_ and x0 // xs == o0 // xs)
-        if not one_row or not (o0 >= x0 + x.shape[-1] or x0 >= o0 + c_out):
+        if not overlap and (not one_row or not (
+                o0 >= x0 + x.shape[-1] or x0 >= o0 + c_out)):
             raise ValueError("out overlaps the channels x reads")
     return xs, os_
 
@@ -239,12 +275,14 @@ def _library(debug_build=False):
 
 
 def _launch(x, packed_filter, transform, has_residual, block=None,
-            debug_k=None, tap_delta=None, out=None):
+            debug_k=None, tap_delta=None, out=None, debug_overlap=False):
     """Launches the kernel, zero-padded where ``tap_delta`` (the (C_out, 9)
     int32 table) is given, into ``out`` where it is given. ``block`` is
     (warps, tiles_per_block) in place of the planner's choice, for a sweep
     over block sizes; ``debug_k`` is the K that the debug build holds
-    ``|t|`` to (9 C by default)."""
+    ``|t|`` to (9 C by default); ``debug_overlap`` lets an ``out`` over
+    the channels ``x`` reads through, for the tail form's debug check to
+    find."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, not {x.device}")
     n, h, w, c = x.shape
@@ -274,7 +312,8 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if name != "x" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    x_stride, out_stride = _pixel_strides(x, c_out, has_residual, out)
+    x_stride, out_stride = _pixel_strides(x, c_out, has_residual, out,
+                                          overlap=debug_overlap)
     if mul.shape != (c_out,) or bias.shape != (c_out,):
         raise ValueError("multiplier and bias need one value per channel")
     plan = plan_residual_block(n, h, w, c, c_out, x.element_size(),
@@ -296,7 +335,8 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
             bias.data_ptr(), tap_delta.data_ptr() if zero_pad else None,
             out.data_ptr(), n, h, w, c, c_out, x_stride, out_stride,
             int(transform.clamp_min), int(transform.clamp_max),
-            int(has_residual), _DTYPE_CODES[x.dtype], plan["warps"],
+            _FORM_CODES[_form(has_residual)], _DTYPE_CODES[x.dtype],
+            plan["warps"],
             plan["tiles_per_block"], plan["blocks"], plan["smem_bytes"],
             stream)
         if rc != 0:
@@ -319,17 +359,19 @@ def _count_launch(zero_pad: bool) -> None:
 def binary_residual_block(x, packed_filter, transform: OutputTransform,
                           params: BConv2DParams, has_residual=True,
                           unpacked_filter=None, tap_delta=None,
-                          _debug_k=None, out=None):
+                          _debug_k=None, out=None, _debug_overlap=None):
     """``x + float_transform(bconv3x3_same(sign(x)))`` in one kernel.
 
     Args:
       x: (N, H, W, C) float32 or bfloat16 activations: dense NHWC, or
-        without the add a channel slice of a dense NHWC tensor (unit
-        channel stride; ``buf[..., :C]``).
+        except under the add of ``x`` itself a channel slice of a dense
+        NHWC tensor (unit channel stride; ``buf[..., :C]``).
       packed_filter: (C_out, 3, 3, ceil(C/32)) int32 packed filter.
       transform: float OutputTransform (multiplier, bias, clamps).
       params: stride-1 SAME BConv2DParams, one or zero padding, groups=1.
-      has_residual: add ``x`` (needs C_out == C); False returns the conv.
+      has_residual: True adds ``x`` (needs C_out == C); ``"tail"`` adds
+        ``x``'s last C_out channels (needs C >= C_out); False returns the
+        conv.
       unpacked_filter: (3, 3, C, C_out) +-1 filter for the plain version.
       tap_delta: for zero padding, the (C_out, 9) int32
         ``zero_padding_tap_delta`` of ``packed_filter`` on the activation's
@@ -339,21 +381,24 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
         apart from the channels ``x`` reads (``buf[..., w:w + C_out]``).
         Any other operand raises ``ValueError`` (``_pixel_strides``).
 
-    Returns (N, H, W, C_out) in ``x.dtype`` (``out`` where given). CPU tensors take the plain
-    version; CUDA tensors take the kernel, which counts its launches in
-    ``binary_residual_block.launches``, and the zero-padded ones also in
-    ``binary_residual_block.zero_pad_launches`` (under a graph's capture,
-    once per replay: ``kernels.counts``); inside ``kernels.debug_checks()``
-    its debug build, which raises ``RuntimeError`` when ``|t| > K``.
-    ``_debug_k`` declares a wrong K there, on purpose.
+    Returns (N, H, W, C_out) in ``x.dtype`` (``out`` where given). CPU
+    tensors take the plain version; CUDA tensors take the kernel, which
+    counts its launches in ``binary_residual_block.launches``, and the
+    zero-padded ones also in ``zero_pad_launches`` (under a graph's
+    capture, once per replay: ``kernels.counts``); inside ``kernels.debug_checks()`` its debug build,
+    which raises ``RuntimeError`` when ``|t| > K`` or a tail-form store
+    lands on a channel ``x`` is read at. ``_debug_k`` declares a wrong K
+    there, and ``_debug_overlap`` lets an overlapping ``out`` through to the
+    kernel, on purpose.
     """
     c_out, fh, fw, _ = packed_filter.shape
+    _check_tail(x, c_out, has_residual)
     if not residual_block_supported(x.shape, params, c_out, fh, fw,
                                     has_residual):
         raise ValueError("fused residual block unsupported for "
                          f"shape {tuple(x.shape)} / filter "
                          f"{tuple(packed_filter.shape)}")
-    debug.require_enabled(_debug_k=_debug_k)
+    debug.require_enabled(_debug_k=_debug_k, _debug_overlap=_debug_overlap)
     if x.device.type == "cpu":
         return binary_residual_block_plain(x, packed_filter, transform,
                                            params, has_residual,
@@ -366,7 +411,8 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
     elif tap_delta is None:
         tap_delta = zero_padding_tap_delta(packed_filter, params)
     return _launch(x, packed_filter, transform, has_residual,
-                   debug_k=_debug_k, tap_delta=tap_delta, out=out)
+                   debug_k=_debug_k, tap_delta=tap_delta, out=out,
+                   debug_overlap=bool(_debug_overlap))
 
 
 binary_residual_block.launches = 0

@@ -57,7 +57,8 @@ from . import layers as L
 __all__ = ["InitBuilder", "FloatBuilder", "CalibrateBuilder",
            "ConvertBuilder", "PackedBuilder", "Int8Tensor", "init_model",
            "float_apply", "calibrate_model", "convert_model",
-           "packed_apply", "prepare_runtime_arrays", "concat", "KERNELS"]
+           "packed_apply", "prepare_runtime_arrays", "concat", "add_tail",
+           "KERNELS"]
 
 # The ``kernel=`` values of PackedBuilder and the entry points above it.
 KERNELS = ("auto", "reference", "bgemm", "mxu", "s2d", "residual")
@@ -85,6 +86,12 @@ class _Base:
     def concat(self, xs):
         return torch.cat(xs, dim=-1)
 
+    def add_tail(self, x, y):
+        """``y`` added into the last ``y.shape[-1]`` channels of ``x``
+        (MeliusNet's improvement block), the channels before them as they
+        are."""
+        return _add_into_tail(x, y)
+
     def dense_block(self, x, width):
         """The stream ``x`` entering a dense block whose concatenations
         grow it to ``width`` channels. Only the packed forward makes use of
@@ -103,6 +110,11 @@ class _Base:
 
 def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _add_into_tail(x, y):
+    k = y.shape[-1]
+    return torch.cat([x[..., :-k], x[..., -k:] + y], dim=-1)
 
 
 def _on(tree, like):
@@ -587,15 +599,33 @@ concat.launches = 0
 concat.in_place = 0
 
 
+def add_tail(x, y):
+    """``_Base.add_tail`` on tensors: ``y`` added into ``x``'s last
+    channels by ``torch.cat`` and an add, counted in ``add_tail.launches``
+    (``kernels.counts``, as ``concat`` is) on any device. The builder's
+    fused tail adds, which the block kernel runs, count in
+    ``add_tail.launches`` and ``add_tail.fused``."""
+    z = _add_into_tail(x, y)
+    counts.count(add_tail)
+    return z
+
+
+add_tail.launches = 0
+add_tail.fused = 0
+
+
 class _DeferredBConv(_Lazy):
     """A float-output binary conv on the block kernel whose execution waits
     for its consumer. QuickNet's ``x = add(x, binary_conv_bn(x, ...))`` runs
     as one fused block (``fused_with``); a dense layer's ``concat([x,
     binary_conv_bn(x, ...)])``, ``x`` the first channels of a wider buffer,
-    writes the conv's channels after them (``written_after``). Any other
-    consumer reads ``to_float()``: before a fused add the same kernel
-    without the add; after it ``fused - x``, as the JAX package does, rather
-    than a second conv that could differ from the fused one by a rounding.
+    writes the conv's channels after them (``written_after``); MeliusNet's
+    ``add_tail(x, binary_conv_bn(x, ...))`` runs as the kernel's tail form
+    (``tail_fused``). Any other consumer reads ``to_float()``: before a
+    fused add the same kernel without the add; after it ``fused - x``, as
+    the JAX package does, rather than a second conv that could differ from
+    the fused one by a rounding. After a tail add written over ``x`` the
+    conv's value alone is gone, and reading it raises.
     """
 
     def __init__(self, x, packed_filter, transform, params, block,
@@ -612,6 +642,9 @@ class _DeferredBConv(_Lazy):
         return self._block(self.x, *self._args, **self._kw, **kw)
 
     def to_float(self):
+        if self._value is _OVERWRITTEN:
+            raise RuntimeError("the conv's input was overwritten by its "
+                               "fused tail add: its value alone is gone")
         if self._value is None:
             self._value = (self._fused - self.x.to(self._fused.dtype)
                            if self._fused is not None
@@ -643,6 +676,24 @@ class _DeferredBConv(_Lazy):
         self._value = self._run(has_residual=False,
                                 out=buf[..., width:end])
         return buf[..., :end]
+
+    def tail_fused(self, stream):
+        """``add_tail(stream, self)`` as one block, written over the
+        stream's last channels, where ``stream`` is the conv's input, at
+        least as wide as the conv, and the conv has not run; else None. The
+        kernel's tail form reads every channel of the stream, so it writes
+        into a new tensor, which is then copied into place: the stream is
+        returned, and the conv's value alone is gone."""
+        k = self.channels
+        if (stream is not self.x or self._value is not None
+                or self._fused is not None or stream.shape[-1] < k):
+            return None
+        stream[..., -k:].copy_(self._run(has_residual="tail"))
+        self._value = _OVERWRITTEN
+        return stream
+
+
+_OVERWRITTEN = object()  # a deferred conv's value after its tail add
 
 
 class _DeferredStem(_Lazy):
@@ -864,6 +915,22 @@ class PackedBuilder(_Base):
                 counts.count(concat, "in_place")
                 return grown
         return concat([_float_view(x) for x in xs])
+
+    def add_tail(self, x, y):
+        """``add_tail`` of the float views, except where ``y`` is the
+        deferred conv of ``x`` and ``x`` is a dense block's newest stream
+        (``dense_block``): then the block kernel's tail form adds ``x``'s
+        last channels and the result is written over them, so the stream
+        stays its buffer's newest prefix and the next dense layer still
+        concatenates in place (counted in ``add_tail.fused`` too). The
+        stream is overwritten: a model reads only the result after it."""
+        if (isinstance(y, _DeferredBConv)
+                and self._buffer_of(x) is not None
+                and y.tail_fused(x) is not None):
+            counts.count(add_tail)
+            counts.count(add_tail, "fused")
+            return x
+        return add_tail(_float_view(x), _float_view(y))
 
     def activation(self, x, kind):
         return super().activation(_float_view(x), kind)

@@ -167,7 +167,7 @@ def _float_reader(method):
     return read
 
 
-for _method in ("avg_pool", "global_avg_pool", "add", "concat",
+for _method in ("avg_pool", "global_avg_pool", "add", "concat", "add_tail",
                 "activation", "softmax", "conv_bn", "depthwise_conv_bn",
                 "dense"):
     setattr(_ReadRecorder, _method, _float_reader(_method))

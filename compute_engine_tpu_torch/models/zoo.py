@@ -22,6 +22,14 @@ publications:
   Architecture for Binary Neural Networks", ICCVW 2019. Dense blocks of
   binary 3x3 convs (growth 64), float 1x1 reduction + 2x2 avg-pool
   transitions, reduction rates per the paper's configurations.
+* MeliusNet-22 — Bethge et al., "MeliusNet: Can Binary Neural Networks
+  Achieve MobileNet-level Accuracy?", arXiv:2001.05936, and larq-zoo's
+  ``literature/meliusnet.py``. Pairs of a dense block (a binary 3x3 conv's
+  64 channels concatenated onto the stream) and an improvement block (a
+  second binary 3x3 conv of the whole stream added into its last 64
+  channels), zero-padded; a stem of three float 3x3 convs, the last two
+  grouped; max-pool + grouped 1x1 transitions. The port's own: the JAX
+  package has no such model.
 
 NOTE: block counts/filters are faithful to the papers, but exact parity with
 larq-zoo layer hyperparameters (initializers, minor stem details) cannot be
@@ -235,6 +243,53 @@ def binary_densenet45(b, x, *, num_classes=1000):
         num_classes=num_classes)
 
 
+# ---------------------------------------------------------------------------
+# MeliusNet
+# ---------------------------------------------------------------------------
+
+
+def _meliusnet_forward(b, x, *, pairs_per_block, transition_filters,
+                       growth_rate=64, num_classes=1000):
+    # The stem: a 3x3/2 conv, then two grouped 3x3 convs, each with BN. As
+    # in the DenseNet note, no ReLU after the last: it feeds the first
+    # block's sign, and sign(relu(x)) is identically +1.
+    x = b.conv_bn(x, 32, 3, stride=2, activation="relu", name="stem_conv_0")
+    x = b.conv_bn(x, 32, 3, groups=4, activation="relu", name="stem_conv_1")
+    x = b.conv_bn(x, 64, 3, groups=8, name="stem_conv_2")
+    x = b.max_pool(x, 3, 2)
+    channels = 64
+    for block_idx, n_pairs in enumerate(pairs_per_block):
+        x = b.dense_block(x, channels + n_pairs * growth_rate)
+        for i in range(n_pairs):
+            # Dense block: sign -> binary 3x3 (zero padding) -> BN, its
+            # channels concatenated onto the stream.
+            y = b.binary_conv_bn(x, growth_rate, 3, pad_value=0,
+                                 name=f"block_{block_idx}_dense_{i}")
+            x = b.concat([x, y])
+            # Improvement block: the same on the whole stream, added into
+            # the stream's last growth_rate channels.
+            y = b.binary_conv_bn(x, growth_rate, 3, pad_value=0,
+                                 name=f"block_{block_idx}_improvement_{i}")
+            x = b.add_tail(x, y)
+        if block_idx < len(pairs_per_block) - 1:
+            # Transition: 2x2/2 max pool, ReLU, grouped 1x1 conv + BN.
+            channels = transition_filters[block_idx]
+            x = b.max_pool(x, 2, 2)
+            x = b.activation(x, "relu")
+            x = b.conv_bn(x, channels, 1, groups=4,
+                          name=f"transition_{block_idx}")
+    x = b.activation(x, "relu")
+    x = b.global_avg_pool(x)
+    x = b.dense(x, num_classes, name="head")
+    return b.softmax(x)
+
+
+def meliusnet22(b, x, *, num_classes=1000):
+    return _meliusnet_forward(
+        b, x, pairs_per_block=(4, 5, 4, 6), transition_filters=(160, 224, 256),
+        num_classes=num_classes)
+
+
 def tiny_quicknet(section_filters=(32, 64), section_blocks=(1, 1),
                   num_classes=16, input_size=32):
     """Reduced-QuickNet ModelSpec factory for tests / dry runs."""
@@ -258,6 +313,8 @@ MODELS = {
     "binary_densenet28": ModelSpec("binary_densenet28", binary_densenet28),
     "binary_densenet37": ModelSpec("binary_densenet37", binary_densenet37),
     "binary_densenet45": ModelSpec("binary_densenet45", binary_densenet45),
+    # The port's own, after the JAX package's models:
+    "meliusnet22": ModelSpec("meliusnet22", meliusnet22),
 }
 
 

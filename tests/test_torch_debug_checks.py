@@ -125,6 +125,9 @@ def test_overrides_need_debug_checks():
     x, pf, tr, params = _block_case()
     with pytest.raises(ValueError, match="debug_checks"):
         binary_residual_block(x, pf, tr, params, _debug_k=1)
+    with pytest.raises(ValueError, match="debug_checks"):
+        binary_residual_block(x, pf, tr, params, has_residual="tail",
+                              _debug_overlap=True)
 
 
 def test_raise_for_names_every_broken_invariant():
@@ -134,9 +137,11 @@ def test_raise_for_names_every_broken_invariant():
     text = str(e.value)
     assert "total_bits" in text and "beyond N" in text and "K" in text
     assert "split-K" not in text
-    assert sorted(debug.CHECKS) == [1, 2, 4, 8, 16]
+    assert sorted(debug.CHECKS) == [1, 2, 4, 8, 16, 32]
     with pytest.raises(RuntimeError, match="stem"):
         debug.raise_for(16)
+    with pytest.raises(RuntimeError, match="tail form"):
+        debug.raise_for(32)
 
 
 def test_debug_flag_gives_a_library_of_its_own(tmp_path, monkeypatch):

@@ -348,6 +348,11 @@ def _strided_refusals():
          "x must be dense NHWC"),
         # a channel prefix under the add
         (buf[..., :64], None, True, "residual forms"),
+        # the tail form: a tail narrower than C_out, an out over the
+        # channels x reads, an out of the wrong width
+        (buf[..., :32], None, "tail", "x has 32"),
+        (buf[..., :128], buf[..., 64:128], "tail", "overlaps"),
+        (buf[..., :128], buf[..., 128:160], "tail", "out must be"),
     ]
 
 
@@ -357,7 +362,8 @@ def test_block_refuses_other_layouts(rng, case, version):
     """Neither the wrapper nor the plain version copies an operand to make
     it fit: a non-unit channel stride, an ``out`` of the wrong shape or
     dtype or over the channels ``x`` reads, a layout that is not one row a
-    pixel, a channel prefix under the add: each raises."""
+    pixel, a channel prefix under the add of ``x`` itself, a tail form
+    reading more channels than ``x`` has: each raises."""
     x, out, residual, words = _strided_refusals()[case]
     _, pf, tr = _case(rng, 1, 1, 1, x.shape[-1], c_out=64)
     _, tp = _params(x.shape[-1])
@@ -365,3 +371,65 @@ def test_block_refuses_other_layouts(rng, case, version):
           else binary_residual_block_plain)
     with pytest.raises(ValueError, match=words):
         fn(x, _t(pf), tr, tp, has_residual=residual, out=out)
+
+
+# -- the tail form: the add of x's last C_out channels ------------------------
+
+# (n, h, w, c, c_out, width of the buffer, dtype): a stream's first c
+# channels of a wider buffer (MeliusNet's improvement: c_out 64), an input
+# as wide as its buffer, C == C_out, ragged depths, one pixel.
+TAIL_CASES = [(2, 6, 6, 128, 64, 192, "bfloat16"),
+              (1, 5, 7, 96, 32, 96, "float32"),
+              (3, 4, 4, 64, 64, 128, "bfloat16"),
+              (2, 3, 5, 80, 48, 160, "float32"),
+              (1, 1, 1, 192, 64, 256, "bfloat16")]
+
+
+@pytest.mark.parametrize("pad_value", [1, 0])
+@pytest.mark.parametrize("version", ["wrapper", "plain"])
+@pytest.mark.parametrize("n,h,w,c,c_out,width,dtype", TAIL_CASES)
+def test_tail_form_is_the_conv_then_the_tail_add(rng, n, h, w, c, c_out,
+                                                 width, dtype, version,
+                                                 pad_value):
+    """The tail form on a channel prefix ``buf[..., :c]`` is the conv with
+    its BN (the packed oracle's, rounded to the activation type) added to
+    the prefix's last C_out channels, bit for bit: into a new tensor, the
+    buffer untouched, and into an ``out`` slot after the prefix, every
+    other channel of the buffer untouched."""
+    x, pf, tr = _case(rng, n, h, w, c, c_out=c_out)
+    _, tp = _params(c, pad_value=pad_value)
+    dt = getattr(torch, dtype)
+    buf = torch.from_numpy(
+        rng.normal(0, 1, (n, h, w, width)).astype(np.float32)).to(dt)
+    buf[..., :c] = torch.from_numpy(x).to(dt)
+    before = buf.clone()
+    stream = buf[..., :c]
+    y = bconv2d_reference(bitpack(stream.contiguous()), _t(pf), tr,
+                          tp).to(dt)
+    want = stream[..., c - c_out:] + y
+    fn = (binary_residual_block if version == "wrapper"
+          else binary_residual_block_plain)
+    got = fn(stream, _t(pf), tr, tp, has_residual="tail")
+    assert torch.equal(got, want)
+    assert torch.equal(buf, before)
+    if width - c >= c_out:
+        fn(stream, _t(pf), tr, tp, has_residual="tail",
+           out=buf[..., c:c + c_out])
+        before[..., c:c + c_out] = want
+        assert torch.equal(buf, before)
+
+
+@pytest.mark.parametrize("c,c_out,want", [(128, 64, True), (64, 64, True),
+                                          (32, 64, False)])
+def test_tail_form_is_supported_where_the_tail_is_wide_enough(c, c_out,
+                                                              want):
+    """The tail form takes an input at least C_out wide; the add of ``x``
+    itself as wide as C_out; ``has_residual`` is True, False or
+    "tail"."""
+    _, tp = _params(c, pad_value=0)
+    assert residual_block_supported((2, 4, 4, c), tp, c_out, 3, 3,
+                                    "tail") is want
+    assert residual_block_supported((2, 4, 4, c), tp, c_out, 3, 3,
+                                    True) is (c == c_out)
+    with pytest.raises(ValueError, match="True, False or 'tail'"):
+        residual_block_supported((2, 4, 4, c), tp, c_out, 3, 3, "head")
