@@ -45,6 +45,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      sums, every output within one bf16 ulp or, where the sum cancels
      near zero, within what reordering a float32 sum moves it
      (``kernels.stem.within_tolerance``);
+   - the transition kernel (``transition_compare``): BinaryDenseNet-45's
+     three 1x1 convs and 2x2/2 average pools at batches 1, 3 and 128 and
+     on a channel prefix of a wider buffer, against its plain version and
+     its float64 sums, within ``kernels.transition.within_tolerance``;
    ``--compare-only`` stops here. ``--stem-only`` builds, runs the stem
    comparisons in the default and the debug build, passes and trips the
    stem's debug check, times the stem at b128 beside its plain chain and
@@ -57,6 +61,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    QuickNet's 16 one-padded blocks per forward, drives Bi-RealNet-18 b128
    through ``Interpreter`` (the launches ``expected_launches`` gives, the
    logits ``torch.equal`` to the plain versions' forward) and stops.
+   ``--transition-only`` builds, runs the transition comparisons in the
+   default and the debug build, passes and trips the transition's debug
+   check, times DenseNet-45's three transitions at b128 beside their plain
+   chain and cuDNN's bf16 conv and PyTorch's pool, drives
+   BinaryDenseNet-45, QuickNet, Bi-RealNet-18 and MeliusNet-22 b128
+   through ``Interpreter`` (3, 0, 0 and 0 transition launches a forward;
+   DenseNet-45's forward beside the same with the transition's plain
+   version, and its profile) and stops.
    ``--dense-only`` builds, runs the in-place comparisons in both builds
    and QuickNet's and Bi-RealNet's contiguous blocks, times the 40 dense
    layers in place beside their dense-input form, drives
@@ -314,6 +326,14 @@ STEM_KERNEL = (7, 7, 3, 64)
 STEM_BATCHES = (1, 8, 128)
 # Launches of the stem kernel a forward, by zoo model.
 STEM_LAUNCHES = {"birealnet18": 1, "binary_densenet45": 1, "quicknet": 0}
+# BinaryDenseNet-45's float transitions (``kernels/transition.py``): (height
+# = width, C_in, C_out) of the 1x1 conv before each 2x2/2 average pool.
+TRANSITIONS = ((56, 448, 160), (28, 928, 256), (14, 1152, 288))
+TRANSITION_BATCHES = (1, 3, 128)
+TRANSITION_PREFIX = 64  # channels after the stream in the wider buffer
+# Launches of the transition kernel a forward, by zoo model.
+TRANSITION_LAUNCHES = {"binary_densenet45": 3, "quicknet": 0,
+                       "birealnet18": 0, "meliusnet22": 0}
 TOLERANCE = "torch.equal (bit for bit)"
 
 # BinaryAlexNet's binary GEMMs at batch 128 in the packed domain:
@@ -616,8 +636,9 @@ def kernel_times(rng, device, card):
     block kernel's time a b128 forward of QuickNet (16 blocks), of
     Bi-RealNet-18 (13 zero-padded blocks with their adds) and of
     BinaryDenseNet-45 (40 dense layers on dense inputs); the stem kernel
-    at b128 beside its plain chain and the library's conv and pool (a
-    checkout without the kernel times its chain alone)."""
+    at b128 beside its plain chain and the library's conv and pool, and
+    DenseNet-45's three transitions likewise (a checkout without a kernel
+    times its chain alone)."""
     import torch
 
     from compute_engine_tpu_torch.core import BConv2DParams, Padding
@@ -657,6 +678,7 @@ def kernel_times(rng, device, card):
               f"{t['ms']:.4f} ms; enqueued from Python "
               f"{t['ms_enqueued_from_python']:.4f} ms [{card}]", flush=True)
     stem_times(rng, device, card)
+    transition_times(device, card)
 
 
 def int8_quicknet(device, seed=0):
@@ -1717,6 +1739,229 @@ def stem_phase(dev, card):
         forwards[model] = {"launches": launches, "ms": ms,
                            "plain_ms": plain_ms, "max_logit_gap": gap,
                            "top1_agree": agree}
+    return {"compare_cases": cases + dcases,
+            "worst_ulps": max(worst, dworst), "times": times,
+            "forwards": forwards}
+
+
+def transition_case(gen, batch, shape, dev, prefix=0):
+    """Inputs of one of DenseNet-45's transitions, drawn on the card from
+    ``gen``: a bf16 stream of ``batch`` images of ``shape`` (with exact
+    +0.0 and -0.0 entries), the channel prefix of a buffer ``prefix``
+    channels wider where ``prefix`` is given; a folded 1x1 kernel and a
+    bias."""
+    import torch
+
+    hw, c, c_out = shape
+    buf = torch.randn((batch, hw, hw, c + prefix), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    flat = buf.view(-1)
+    flat[::97] = 0.0
+    flat[1::89] = -0.0
+    kernel = torch.randn((1, 1, c, c_out), generator=gen, device=dev) * (
+        2.0 / c) ** 0.5
+    bias = torch.randn((c_out,), generator=gen, device=dev) * 0.5
+    return buf[..., :c], kernel, bias
+
+
+def transition_compare(dev, checked=False):
+    """The transition kernel against its plain version (cuDNN's conv,
+    PyTorch's pool) and against its float64 sums
+    (``transition_conv_pool_exact``) at DenseNet-45's three transitions, at
+    ``TRANSITION_BATCHES`` on a dense stream and at batch 3 on a channel
+    prefix of a wider buffer: every output within one bf16 ulp, or beyond
+    it only by what reordering a float32 sum moves it
+    (``transition.within_tolerance``). ``checked`` runs the debug build.
+    Returns the cases and the largest gap in ulps."""
+    import torch
+
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.kernels.transition import (
+        transition_conv_pool, transition_conv_pool_exact,
+        transition_conv_pool_plain, transition_filter, within_tolerance)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25 + checked)
+    worst, cases = 0.0, 0
+    runs = [(b, shape, 0) for b in TRANSITION_BATCHES for shape in TRANSITIONS]
+    runs += [(3, shape, TRANSITION_PREFIX) for shape in TRANSITIONS]
+    for batch, shape, prefix in runs:
+        x, kernel, bias = transition_case(gen, batch, shape, dev, prefix)
+        with debug_checks() if checked else contextlib.nullcontext():
+            got = transition_conv_pool(x, kernel, bias,
+                                       filter_bf16=transition_filter(kernel))
+            torch.cuda.synchronize()
+        label = (f"transition b{batch} {shape[0]}x{shape[0]}x{shape[1]} -> "
+                 f"{shape[2]}" + (f" (prefix of {shape[1] + prefix})"
+                                  if prefix else "")
+                 + " (debug build)" * checked)
+        for name, want in (("plain", transition_conv_pool_plain(x, kernel,
+                                                                bias)),
+                           ("float64", transition_conv_pool_exact(
+                               x, kernel, bias))):
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{label}: {tuple(got.shape)} {got.dtype} against "
+                  f"{tuple(want.shape)}")
+            ok, ulps = within_tolerance(got, want, x, kernel, bias)
+            check(bool(ok.all()), f"{label} against the {name} version: "
+                  f"{int((~ok).sum())} outputs beyond the tolerance, "
+                  f"{ulps.max().item():.3g} ulps at most")
+            worst = max(worst, float(ulps.max()))
+            print(f"[compare] {label} against the {name} version: within "
+                  f"tolerance; {int((ulps == 0).sum())} of {ulps.numel()} "
+                  f"equal, {int((ulps > 1).sum())} beyond one ulp, "
+                  f"{ulps.max().item():.3g} ulps at most", flush=True)
+            cases += 1
+        del x, got, want
+    return cases, worst
+
+
+def transition_times(dev, card, yardsticks=True):
+    """Milliseconds of DenseNet-45's three transitions a b128 forward, by
+    CUDA-graph replay: the kernel (with the filters prepared once, as the
+    runtime does), and with ``yardsticks`` its plain chain (the TF32 conv
+    of the cells' float32 flags) and ``library_ms``, cuDNN's bf16 1x1 conv
+    with its bias on the channels-last stream then PyTorch's average pool
+    (no call of the port); and the bound (the stream read once, the pooled
+    stream written once, the bf16 filters and float32 biases once, at
+    3.35 TB/s). A checkout without the kernel times its chain alone."""
+    import torch
+
+    from compute_engine_tpu_torch.models import layers as L
+
+    try:
+        from compute_engine_tpu_torch.kernels.transition import (
+            transition_conv_pool, transition_filter)
+    except ImportError:
+        transition_conv_pool = None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2525)
+    times = {"ms": 0.0 if transition_conv_pool else None, "plain_ms": 0.0,
+             "library_ms": 0.0, "bound_ms": 0.0}
+    for shape in TRANSITIONS:
+        x, kernel, bias = transition_case(gen, 128, shape, dev)
+        hw, c, c_out = shape
+        nbytes = (x.numel() * 2 + 128 * (hw // 2) ** 2 * c_out * 2
+                  + c * c_out * 2 + c_out * 4)
+        times["bound_ms"] += nbytes / PEAK_BYTES_PER_S * 1e3
+        row = {}
+        if transition_conv_pool is not None:
+            filt = transition_filter(kernel)
+            row["ms"] = time_ms(lambda: transition_conv_pool(
+                x, kernel, bias, filter_bf16=filt), reps=50)
+        if yardsticks:
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=False,
+                                            allow_tf32=True):
+                row["plain_ms"] = time_ms(lambda: L.avg_pool(
+                    (L.conv2d(x, kernel, (1, 1), "SAME") + bias).to(
+                        torch.bfloat16), (2, 2), (2, 2), "VALID"), reps=10)
+            xn = x.permute(0, 3, 1, 2)
+            wb = kernel.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bb = bias.to(torch.bfloat16)
+            row["library_ms"] = time_ms(
+                lambda: torch.nn.functional.avg_pool2d(
+                    torch.nn.functional.conv2d(xn, wb, bb), 2, 2), reps=20)
+        for k, v in row.items():
+            times[k] += v
+        print(f"[transition-time] b128 {hw}x{hw}x{c} -> {c_out}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
+              + f", bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms [{card}]",
+              flush=True)
+        del x
+    print(f"[transition-time] DenseNet-45's three transitions a b128 "
+          f"forward: kernel {ms_text(times['ms'])}, bound "
+          f"{times['bound_ms']:.4f} ms (bytes)"
+          + (f", plain chain (TF32 conv) {times['plain_ms']:.4f} ms, library "
+             f"(cuDNN bf16 1x1 conv + avg_pool2d) {times['library_ms']:.4f} ms"
+             if yardsticks else "") + f" [{card}]", flush=True)
+    return times
+
+
+def transition_phase(dev, card):
+    """``--transition-only``: the transition kernel against its plain
+    version and the exact conv in the default and the debug build, its
+    debug check passed and tripped, DenseNet-45's three transitions timed
+    at b128, and DenseNet-45, QuickNet, Bi-RealNet-18 and MeliusNet-22 at
+    b128 through ``Interpreter``: the transition launches a forward
+    (``TRANSITION_LAUNCHES``), and DenseNet-45's forward beside the same
+    forward with the transition's plain version (logits' gap, ms a
+    forward, its profile)."""
+    import numpy as np
+    import torch
+
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.kernels import transition as tr
+    from compute_engine_tpu_torch.models import (convert_model, get_model,
+                                                 init_model)
+    from compute_engine_tpu_torch.runtime import Interpreter
+
+    cases, worst = transition_compare(dev)
+    dcases, dworst = transition_compare(dev, checked=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2526)
+    x, kernel, bias = transition_case(gen, 2, TRANSITIONS[0], dev)
+    farthest = tr.farthest_read(tr.plan_transition(*x.shape,
+                                                   kernel.shape[3]))
+    with debug_checks():
+        tr.transition_conv_pool(x, kernel, bias,
+                                _debug_tile_elems=farthest + 1)
+        torch.cuda.synchronize()
+        trip = expect_trip(lambda: tr.transition_conv_pool(
+            x, kernel, bias, _debug_tile_elems=farthest), "transition")
+    print(f"[compare] transition debug build: silent at a tile of "
+          f"{farthest + 1} elements, tripped on purpose at {farthest}: "
+          f"{trip}", flush=True)
+    times = transition_times(dev, card)
+
+    forwards = {}
+    kernel_fn = tr.transition_conv_pool
+    srng = np.random.default_rng(25)
+    for model, want in TRANSITION_LAUNCHES.items():
+        spec = get_model(model)
+        layers = convert_model(spec, init_model(spec, seed=0,
+                                                randomize_bn=True))
+        xm = torch.from_numpy(srng.normal(0, 1, (128, 224, 224, 3)).astype(
+            np.float32)).to(dev)
+        runs = {}
+        for label in ("kernel", "plain") if want else ("kernel",):
+            if label == "plain":
+                tr.transition_conv_pool = (
+                    lambda *a, filter_bf16=None, **kw:
+                    tr.transition_conv_pool_plain(*a, **kw))
+            try:
+                interp = Interpreter(spec, layers, output_mode="logits",
+                                     device=dev)
+                interp(xm)  # compiles
+                kernel_fn.launches = 0
+                logits = interp(xm).clone()
+                launches = kernel_fn.launches
+                ms = time_ms(lambda: interp(xm), reps=20, graph=False)
+                busy = (profile_forward(lambda: interp(xm))
+                        if want and label == "kernel" else None)
+                runs[label] = (logits, launches, ms, busy)
+                del interp
+            finally:
+                tr.transition_conv_pool = kernel_fn
+        logits, launches, ms, busy = runs["kernel"]
+        check(launches == want, f"{model} b128: {launches} transition "
+              f"launches a forward, expected {want}")
+        forwards[model] = {"launches": launches, "ms": ms, "busy_ms": busy}
+        line = (f"[transition] {model} b128 Interpreter: {launches} "
+                f"transition launch(es) a forward; {ms:.4f} ms a forward")
+        if want:
+            plain, plain_launches, plain_ms, _ = runs["plain"]
+            check(plain_launches == 0, f"{model}: {plain_launches} launches "
+                  "with the plain version")
+            agree = int((logits.argmax(-1) == plain.argmax(-1)).sum())
+            gap = (logits - plain).abs().max().item()
+            line += (f" against {plain_ms:.4f} ms with the transition's "
+                     f"plain version (CUDA events, 20 calls); logits max "
+                     f"|diff| {gap:.3g}, top-1 agreement {agree}/128")
+            forwards[model].update(plain_ms=plain_ms, max_logit_gap=gap,
+                                   top1_agree=agree)
+        print(line + f" [{card}]", flush=True)
     return {"compare_cases": cases + dcases,
             "worst_ulps": max(worst, dworst), "times": times,
             "forwards": forwards}
@@ -3051,7 +3296,8 @@ def main():
     t0 = time.perf_counter()
     # The kernels' debug builds too (phase 7): one nvcc each, all at once.
     logs = _build.build_all(debug=tuple(
-        name for name in ("bgemm", "residual_block", "stem_conv_pool")
+        name for name in ("bgemm", "residual_block", "stem_conv_pool",
+                          "transition_conv_pool")
         if name in _build.sources()))
     print(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -3109,6 +3355,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
         return 0
     if "--stem-only" in args:
         print(json.dumps({"stem": stem_phase(dev, card)}))
+        return 0
+    if "--transition-only" in args:
+        print(json.dumps({"transition": transition_phase(dev, card)}))
         return 0
     if "--train-only" in args:
         models = TRAIN_MODELS
@@ -3185,6 +3434,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     zero_pad_compare(np.random.default_rng(17), dev)
     dense_compare(np.random.default_rng(45), dev)
     stem_compare(np.random.default_rng(23), dev)
+    transition_compare(dev)
 
     gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0, "bgemm_int8": 0.0}
     gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})

@@ -13,8 +13,9 @@
 // The overrides stand for the accounting bugs the checks guard against, so
 // that a test can trip each check on purpose: a declared bit count K (the
 // GEMM's total_bits, the block's 9 C) that is not what the kernel swept, or
-// a patch size (the stem's) that is not what it staged, and a channel count
-// for the bitpacked epilogue's votes that runs past N.
+// a patch or tile size (the stem's, the transition's) that is not what it
+// staged, and a channel count for the bitpacked epilogue's votes that runs
+// past N.
 
 #pragma once
 
@@ -32,11 +33,14 @@ enum Bit {
   kStemPatch = 16,     // the stem reads no operand outside its staged patch
   kTailOverlap = 32,   // the residual block's tail form stores on no channel
                        // that it reads
+  kTransitionTile = 64,  // the transition reads no operand outside the
+                         // tile it staged
 };
 
 __device__ int error_word;
 __device__ int declared_bits;  // 0: the bits the kernel swept (the stem:
-                               // the elements of its patch)
+                               // the elements of its patch; the
+                               // transition: of its staged input tile)
 __device__ int vote_n;         // 0: the kernel's own N
 
 __device__ __forceinline__ void fail(int bit) { atomicOr(&error_word, bit); }

@@ -65,6 +65,7 @@
 
 #include "debug_checks.cuh"
 #include "mma_binary.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -122,22 +123,6 @@ __device__ __forceinline__ float activate(float y, int act) {
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 // Where a tile lies: its image, its first pooled row and column, and the
@@ -319,11 +304,11 @@ stem_conv_pool_kernel(const T* __restrict__ x,
 #pragma unroll
       for (int jp = 0; jp < kNT / 2; ++jp) {
         uint32_t b[4];
-        ldmatrix_x4(b, b_lane + 2 * (16 * jp * kFS + 16 * step));
+        ce::ldmatrix_x4(b, b_lane + 2 * (16 * jp * kFS + 16 * step));
 #pragma unroll
         for (int i = 0; i < kMT; ++i) {
-          mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
-          mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+          ce::mma_bf16(acc[i][2 * jp], a[i], b[0], b[1]);
+          ce::mma_bf16(acc[i][2 * jp + 1], a[i], b[2], b[3]);
         }
       }
     }

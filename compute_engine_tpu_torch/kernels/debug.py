@@ -12,12 +12,15 @@ compiled out unless ``pl.enable_debug_checks()`` is on:
          the port packs by OR, not by matmul)
   bit 8  the residual block: ``|t| <= K = 9 C`` (``residual.py:118-120``)
 
-and the port adds one of its own kernel, which no Pallas kernel has:
+and the port adds checks of its own kernels, which no Pallas kernel has:
 
   bit 16 the stem (``kernels/stem.py``): every operand its implicit GEMM
          reads lies inside the input patch it staged in shared memory
   bit 32 the residual block's tail form (``kernels/residual.py``): no
          store lands on a channel that the launch reads ``x`` at
+  bit 64 the transition (``kernels/transition.py``): every operand its
+         GEMM reads lies inside the input tile and the filter chunk it
+         staged in shared memory
 
 Inside ``debug_checks()`` the wrappers load a build of each kernel with
 ``-DCE_DEBUG_CHECKS`` (a library of its own; the default build compiles
@@ -29,7 +32,8 @@ CUDA context unusable for the rest of the process. On CPU tensors the plain
 versions hold the same inequalities inside ``debug_checks()``.
 
 The wrappers' private overrides (``_debug_total_bits``, ``_debug_vote_n``,
-``_debug_k``, ``_debug_patch_elems``, ``_debug_overlap``) stand for the
+``_debug_k``, ``_debug_patch_elems``, ``_debug_overlap``,
+``_debug_tile_elems``) stand for the
 accounting bugs the checks guard against, so that a test trips each check
 on purpose; only a call inside
 ``debug_checks()`` takes them. ``_debug_vote_n`` breaks the GEMM kernel's
@@ -66,6 +70,8 @@ CHECKS = {
         "or tile geometry broken",
     32: "residual tail form: a store on a channel the launch reads — the "
         "output overlaps its input",
+    64: "transition: an operand read outside the staged tile — tile "
+        "geometry broken",
 }
 
 _ENABLED = contextvars.ContextVar("ce_debug_checks", default=False)

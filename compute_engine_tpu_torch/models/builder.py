@@ -46,6 +46,7 @@ from ..device import exact_float32, resolve_device
 from ..interop import layers_from_numpy
 from ..kernels import counts
 from ..kernels import stem as _stem
+from ..kernels import transition as _transition
 from ..kernels.bconv2d import (bconv2d_mxu_float_in, bconv2d_mxu_s2d,
                                bdense_mxu, bdense_mxu_float_in)
 from ..kernels.bgemm import bgemm
@@ -97,6 +98,13 @@ class _Base:
         grow it to ``width`` channels. Only the packed forward makes use of
         the width; here the stream is returned as it is."""
         return x
+
+    def transition(self, x, filters, *, name):
+        """A dense block's float transition: a 1x1 conv with BN to
+        ``filters`` channels (the layer ``name``), then a 2x2/2 VALID
+        average pool. Here the two layers as they are; the packed forward
+        runs them as one kernel where it can."""
+        return self.avg_pool(self.conv_bn(x, filters, 1, name=name), 2, 2)
 
     def flatten(self, x):
         return x.reshape(x.shape[0], -1)
@@ -770,7 +778,9 @@ class PackedBuilder(_Base):
     stem of Bi-RealNet-18 and the BinaryDenseNets) on a bf16 stream waits
     for its consumer (``_DeferredStem``): a 3x3/2 SAME max pool runs with
     it as one kernel, on the card the hand-written one; any other consumer
-    gets the float chain, as every other float conv does.
+    gets the float chain, as every other float conv does. A dense block's
+    transition (``transition``: a 1x1 conv, then a 2x2/2 average pool) on a
+    bf16 stream that ``kernels.transition`` takes is one kernel likewise.
 
     ``domain="packed"``: binary layers chain through bitpacked activations
     (convert-time thresholds and sign-flipped filters), pooling and flatten
@@ -931,6 +941,22 @@ class PackedBuilder(_Base):
             counts.count(add_tail, "fused")
             return x
         return add_tail(_float_view(x), _float_view(y))
+
+    def transition(self, x, filters, *, name):
+        """The transition's conv and pool in one kernel
+        (``kernels.transition``, on the card the hand-written one) where the
+        stream is bf16 and the kernel takes the float conv
+        (``transition_supported``), with the filter prepared at load
+        (``transition_filter``); else the two layers as in ``_Base``."""
+        a = self.layers[name]
+        if (self.compute_dtype == torch.bfloat16 and "kernel_int8" not in a
+                and _transition.transition_supported(x, a["kernel"])):
+            bits = a.get("transition_filter")
+            return _transition.transition_conv_pool(
+                x, a["kernel"], a["bias"],
+                filter_bf16=None if bits is None
+                else bits.view(torch.bfloat16))
+        return super().transition(x, filters, name=name)
 
     def activation(self, x, kind):
         return super().activation(_float_view(x), kind)
@@ -1243,7 +1269,7 @@ def calibrate_model(spec, params, batches, with_outputs=False, device="cuda"):
     return b.ranges
 
 
-def prepare_runtime_arrays(layers):
+def prepare_runtime_arrays(layers, spec=None):
     """Add once-unpacked +-1 int8 filters to artifact layers (numpy):
 
       bconv:  ``filter_pm1`` (FH, FW, C, O)
@@ -1253,6 +1279,12 @@ def prepare_runtime_arrays(layers):
     C <= 4, 64) kernel with K <= 160), ``stem_filter`` (64, 160): the kernel
     rounded to bf16 in the stem kernel's K order (``kernels.stem.
     stem_filter``), held as its int16 bit patterns (numpy has no bf16),
+
+    with the model's ``spec``, to the conv of each of its transitions
+    (``models.shapes.transition_layers``) that the transition kernel may
+    take (``kernels.transition.takes_filter``), ``transition_filter``
+    (C_out, C_in): the kernel rounded to bf16 (``kernels.transition.
+    transition_filter``), held likewise; no other 1x1 conv gets one,
 
     and, to a SAME zero-padded bconv, ``tap_delta`` (O, FH * FW) int32:
     what each out-of-image tap adds to each output channel's accumulator
@@ -1268,6 +1300,11 @@ def prepare_runtime_arrays(layers):
         w = torch.from_numpy(np.array(words, order="C").view(np.int32))
         return bitunpack(w, channels, dtype=torch.int8).numpy()
 
+    transitions = set()
+    if spec is not None:
+        from .shapes import transition_layers
+
+        transitions = set(transition_layers(spec))
     out = {}
     for name, a in layers.items():
         a = dict(a)
@@ -1283,6 +1320,12 @@ def prepare_runtime_arrays(layers):
               and _stem.takes_filter(np.shape(a["kernel"]))):
             a["stem_filter"] = _stem.stem_filter(torch.as_tensor(
                 np.asarray(a["kernel"], np.float32))).view(torch.int16).numpy()
+        elif (name in transitions and "kernel" in a
+              and "transition_filter" not in a
+              and _transition.takes_filter(np.shape(a["kernel"]))):
+            a["transition_filter"] = _transition.transition_filter(
+                torch.as_tensor(np.asarray(a["kernel"], np.float32))).view(
+                    torch.int16).numpy()
         if (a.get("kind") == "bconv" and "tap_delta" not in a
                 and a.get("padding", "SAME") == "SAME"
                 and int(a["pad_value"]) == 0):

@@ -8,7 +8,9 @@ nothing) and returns one record per binary conv and binary dense call, with
 the GEMM row count ``m`` that keys the table. ``binary_layer_modes`` adds
 the (domain, output kind) pairs under which the model runtime consults the
 table for each layer; the planner (``kernels/autotune.py``), the coverage
-test and the card's smoke run walk those.
+test and the card's smoke run walk those. ``transition_layers`` names the
+convs that a model's forward runs as dense-block transitions, whose filters
+the model runtime prepares for the transition kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..core.types import Padding
 from . import layers as L
 from .builder import _Base, _pair
 
-__all__ = ["binary_layer_shapes", "binary_layer_modes"]
+__all__ = ["binary_layer_shapes", "binary_layer_modes", "transition_layers"]
 
 
 class _ShapeRecorder(_Base):
@@ -194,3 +196,28 @@ def binary_layer_modes(spec, batch=1):
                   for (kind, r), reads in zip(b.layers, b.reads)
                   for out_kind in sorted(reads)]
     return modes
+
+
+class _TransitionRecorder(_ShapeRecorder):
+    """A ``_ShapeRecorder`` that records the name of each transition
+    (``_Base.transition``) the forward makes."""
+
+    def __init__(self, batch):
+        super().__init__(batch)
+        self.transitions: list[str] = []
+
+    def transition(self, x, filters, *, name):
+        self.transitions.append(name)
+        return super().transition(x, filters, name=name)
+
+
+def transition_layers(spec):
+    """The names of the conv layers that ``spec``'s forward runs as
+    dense-block transitions (a 1x1 conv and a 2x2/2 average pool, the
+    builders' ``transition``), in forward order: none for a model without
+    them."""
+    b = _TransitionRecorder(1)
+    x = torch.empty((1, *spec.input_size, 3), dtype=torch.float32,
+                    device="meta")
+    spec.forward(b, x)
+    return b.transitions

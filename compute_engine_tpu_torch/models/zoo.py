@@ -214,11 +214,15 @@ def _binary_densenet_forward(b, x, *, layers_per_block, reductions,
                                  name=f"block_{block_idx}_layer_{i}")
             x = b.concat([x, y])
         if block_idx < len(layers_per_block) - 1:
-            # Float transition: 1x1 reduction conv + 2x2 average pooling.
+            # Float transition: 1x1 reduction conv + 2x2 average pooling,
+            # as one layer for a builder that has it.
             channels = int(x.shape[-1] // reductions[block_idx] // 32) * 32
-            x = b.conv_bn(x, channels, 1,
-                          name=f"transition_{block_idx}")
-            x = b.avg_pool(x, 2, 2)
+            if hasattr(b, "transition"):
+                x = b.transition(x, channels, name=f"transition_{block_idx}")
+            else:
+                x = b.conv_bn(x, channels, 1,
+                              name=f"transition_{block_idx}")
+                x = b.avg_pool(x, 2, 2)
     x = b.activation(x, "relu")
     x = b.global_avg_pool(x)
     x = b.dense(x, num_classes, name="head")

@@ -64,8 +64,9 @@ import torch
 
 from ..kernels.bgemm import bgemm
 from ..kernels.residual import binary_residual_block
-from ..models.builder import (Int8Tensor, PackedBuilder, _BinaryStream,
-                              _float_view, _forward_scope, _result)
+from ..models.builder import (Int8Tensor, PackedBuilder, _Base,
+                              _BinaryStream, _float_view, _forward_scope,
+                              _result)
 from .collective import all_gather, record, to_slot
 from .sharding import ShardedTensor
 
@@ -202,6 +203,10 @@ class ShardedBuilder(PackedBuilder):
         """A dense block's stream stays as it is: its layers' outputs are
         gathered from the slots and concatenated by copies."""
         return x
+
+    # A transition's conv may be sharded: it runs by ``conv_bn``, then the
+    # pool, as the two layers they are.
+    transition = _Base.transition
 
     # -- copies between slots ------------------------------------------------
 

@@ -119,7 +119,8 @@ def prepare_forward(model=None, batch=8, seed=0, kernel="auto",
         layers_np = convert_model(spec, params, **ranges)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    layers = layers_from_numpy(prepare_runtime_arrays(layers_np), device)
+    layers = layers_from_numpy(prepare_runtime_arrays(layers_np, spec),
+                              device)
     size = tuple(input_size or spec.input_size)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(0, 1, (batch, *size, 3))

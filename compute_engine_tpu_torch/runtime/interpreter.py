@@ -87,7 +87,7 @@ class Interpreter:
         self.output_mode = output_mode
         self.output_scale = output_scale
         self.output_zero_point = output_zero_point
-        self.layers = layers_from_numpy(prepare_runtime_arrays(layers),
+        self.layers = layers_from_numpy(prepare_runtime_arrays(layers, model),
                                         self.device)
         self._compiled = None
         if self.device.type == "cuda":

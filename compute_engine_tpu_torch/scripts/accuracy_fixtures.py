@@ -190,8 +190,8 @@ def record(spec, trained, protos, layers, layers8, seed=0, device="cuda",
     (``exact_oracle``); ``oracle`` is the float32 oracle's, as on the
     JAX package's CPU."""
     device = resolve_device(device)
-    run = layers_from_numpy(prepare_runtime_arrays(layers), device)
-    run8 = layers_from_numpy(prepare_runtime_arrays(layers8), device)
+    run = layers_from_numpy(prepare_runtime_arrays(layers, spec), device)
+    run8 = layers_from_numpy(prepare_runtime_arrays(layers8, spec), device)
     forwards = {
         "packed_f32": lambda x: packed_apply(
             spec, run, x, compute_dtype=torch.float32, device=device),

@@ -137,11 +137,13 @@ def test_raise_for_names_every_broken_invariant():
     text = str(e.value)
     assert "total_bits" in text and "beyond N" in text and "K" in text
     assert "split-K" not in text
-    assert sorted(debug.CHECKS) == [1, 2, 4, 8, 16, 32]
+    assert sorted(debug.CHECKS) == [1, 2, 4, 8, 16, 32, 64]
     with pytest.raises(RuntimeError, match="stem"):
         debug.raise_for(16)
     with pytest.raises(RuntimeError, match="tail form"):
         debug.raise_for(32)
+    with pytest.raises(RuntimeError, match="transition"):
+        debug.raise_for(64)
 
 
 def test_debug_flag_gives_a_library_of_its_own(tmp_path, monkeypatch):
@@ -205,7 +207,8 @@ def test_the_repo_sources_carry_the_checks_behind_the_flag():
     ``CE_DEBUG_CHECKS``: the default build compiles none of them."""
     import os
 
-    for name in ("bgemm", "residual_block", "stem_conv_pool"):
+    for name in ("bgemm", "residual_block", "stem_conv_pool",
+                 "transition_conv_pool"):
         with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
             src = f.read()
         assert '#include "debug_checks.cuh"' in src
