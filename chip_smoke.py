@@ -23,7 +23,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      random thresholds, also with operands that are not 16-byte aligned; in
      its split-K form, forced at a ragged K; and with int8 output at the
      four shapes QuickNet's binary convs give it at batch 128 in the int8
-     pipeline (multipliers of both signs);
+     pipeline (multipliers of both signs); and with float output and a
+     folded BN at ReActNet-A's 13 1x1 convs at batch 128
+     (``react_pointwise_gemms``: M from 6,272 to 1,605,632 rows, KW 1 to
+     32 words, each doubling pair one GEMM of 2C outputs);
    - the exact integer layers of the int8 pipeline (no kernel of the port:
      an im2col and ``torch._int_mm``, shifted int32 products for the
      depthwise conv): the int32 accumulator of each int8 layer of QuickNet,
@@ -49,6 +52,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      three 1x1 convs and 2x2/2 average pools at batches 1, 3 and 128 and
      on a channel prefix of a wider buffer, against its plain version and
      its float64 sums, within ``kernels.transition.within_tolerance``;
+   - the block kernel's ReActNet form (``react_compare``: the threshold in
+     the band's signing, the add of x, RPReLU after it) at ReActNet-A's
+     five stride-1 3x3 shapes at batches 1, 8 and 128, in the default and
+     the debug build;
    ``--compare-only`` stops here. ``--stem-only`` builds, runs the stem
    comparisons in the default and the debug build, passes and trips the
    stem's debug check, times the stem at b128 beside its plain chain and
@@ -69,6 +76,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    through ``Interpreter`` (3, 0, 0 and 0 transition launches a forward;
    DenseNet-45's forward beside the same with the transition's plain
    version, and its profile) and stops.
+   ``--reactnet-only`` builds, holds the block kernel's ReActNet form (the
+   threshold in the band's signing, RPReLU after the add) ``torch.equal``
+   to its plain version at ReActNet-A's stride-1 3x3 shapes at batches 1, 8
+   and 128 in the default and the debug build, times the 9 blocks of a
+   b128 forward in that form beside the same blocks without the threshold
+   and RPReLU and beside the unfused chain (the shifted input made, the
+   conv, the add, the RPReLU), drives ReActNet-A b128 through
+   ``Interpreter`` (the launches, thresholded launches and RPReLUs a
+   forward; the logits ``torch.equal`` to the same forward with every
+   RPReLU unfused; both timed; the fused one profiled) and stops.
    ``--dense-only`` builds, runs the in-place comparisons in both builds
    and QuickNet's and Bi-RealNet's contiguous blocks, times the 40 dense
    layers in place beside their dense-input form, drives
@@ -504,6 +521,27 @@ def gemm_case(rng, m, kw, n, kind, device, n_major=True):
             .to(device),
             clamp_min=-20 * kw + 7, clamp_max=30 * kw - 3)
     return lhs, rhs, kwargs
+
+
+def bn_gemm_case(rng, m, kw, n, device):
+    """Random operands of a 1x1 binary conv's GEMM as the packed path runs
+    it (``kernels/bconv2d.py`` ``bconv2d_bgemm``): lhs (M, KW) words, rhs
+    the transposed view of an (N, KW) filter, and the float epilogue of a
+    BN folded by ``fuse_output_transform`` over K = 32 KW bits, clamps
+    included."""
+    import torch
+
+    from compute_engine_tpu_torch.core.transforms import (
+        fuse_output_transform)
+
+    lhs, rhs, _ = gemm_case(rng, m, kw, n, "accum", device)
+    t = fuse_output_transform(rng.uniform(-2, 2, n), rng.normal(0, 3, n),
+                              32 * kw)
+    return lhs, rhs, {
+        "out_kind": "float", "clamp_min": t.clamp_min,
+        "clamp_max": t.clamp_max,
+        "multiplier": torch.as_tensor(t.multiplier).to(device),
+        "bias": torch.as_tensor(t.bias).to(device)}
 
 
 def gemm_work(m, kw, n, kind):
@@ -1967,6 +2005,217 @@ def transition_phase(dev, card):
             "forwards": forwards}
 
 
+def react_blocks():
+    """``(h, w, c, c_out, stride)`` of ReActNet-A's 13 blocks, as the
+    benchmark's counts (``portbench/counts/reactnet_a.py``) read them from
+    the configuration."""
+    from portbench import spec
+
+    cfg = spec.config("reactnet_a")
+    return spec.module("counts", cfg["counts"])._blocks(cfg)
+
+
+def react_stride1_shapes():
+    """``(h, w, c)`` of ReActNet-A's stride-1 3x3 convs, each once."""
+    shapes = []
+    for h, w, c, _, stride in react_blocks():
+        if stride == 1 and (h, w, c) not in shapes:
+            shapes.append((h, w, c))
+    return shapes
+
+
+def react_pointwise_gemms(batch=128):
+    """``(label, m, kw, n)`` of ReActNet-A's 13 1x1 convs at ``batch`` as
+    the binary GEMM runs them: the block's output pixels as rows, its
+    input's channels in words, its output's channels (a doubling pair one
+    GEMM of 2C)."""
+    gemms = []
+    for i, (h, w, c, c_out, stride) in enumerate(react_blocks()):
+        m = batch * -(-h // stride) * -(-w // stride)
+        pair = " pair" if c_out == 2 * c else ""
+        gemms.append((f"ReActNet-A b{batch} block {i}{pair} 1x1", m, c // 32,
+                      c_out))
+    return gemms
+
+
+def react_case(batch, h, w, c, device, seed=0):
+    """A (batch, h, w, c) bf16 input and a zero-padded 3x3 conv of it with
+    its threshold and RPReLU: (x, packed filter, transform, params,
+    tap_delta, +-1 filter, threshold, (shift_in, slope, shift_out))."""
+    import torch
+
+    from compute_engine_tpu_torch.core.bitpack import bitpack, bitunpack
+    from compute_engine_tpu_torch.core.params import BConv2DParams
+    from compute_engine_tpu_torch.core.reference import (
+        zero_padding_tap_delta)
+    from compute_engine_tpu_torch.core.transforms import (
+        OutputTransform, fuse_output_transform)
+    from compute_engine_tpu_torch.core.types import Padding
+
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(batch, h, w, c, generator=g) * 2).to(device,
+                                                          torch.bfloat16)
+    pf = bitpack(torch.where(torch.rand(c, 3, 3, c, generator=g) < 0.5,
+                             -1.0, 1.0)).to(device)
+    post_mul = (torch.rand(c, generator=g) * 1.9 + 0.1).numpy()
+    post_bias = ((torch.rand(c, generator=g) - 0.5) * 10).numpy()
+    t = fuse_output_transform(post_mul, post_bias, 9 * c)
+    tr = OutputTransform(clamp_min=t.clamp_min, clamp_max=t.clamp_max,
+                         multiplier=torch.as_tensor(t.multiplier).to(device),
+                         bias=torch.as_tensor(t.bias).to(device))
+    params = BConv2DParams(channels_in=c, padding=Padding.SAME, pad_value=0)
+    threshold = (torch.randn(c, generator=g) * 0.3).to(device)
+    rprelu = ((torch.randn(c, generator=g) * 0.3).to(device),
+              (0.05 + 0.45 * torch.rand(c, generator=g)).to(device),
+              (torch.randn(c, generator=g) * 0.3).to(device))
+    return (x, pf, tr, params, zero_padding_tap_delta(pf, params),
+            bitunpack(pf, c, dtype=torch.int8).permute(1, 2, 3, 0),
+            threshold, rprelu)
+
+
+def react_compare(dev):
+    """The block kernel's ReActNet form ``torch.equal`` to its plain version
+    at ReActNet-A's stride-1 3x3 shapes, b1/b8/b128, in the default and the
+    debug build; returns the number of cases."""
+    import torch
+
+    from compute_engine_tpu_torch.kernels import debug_checks
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, binary_residual_block_plain)
+
+    shapes = react_stride1_shapes()
+    cases = 0
+    for checked in (False, True):
+        for batch in (1, 8, 128):
+            for i, (h, w, c) in enumerate(shapes):
+                x, pf, tr, params, delta, pm1, thr, rp = react_case(
+                    batch, h, w, c, dev, seed=i)
+                with debug_checks() if checked else contextlib.nullcontext():
+                    got = binary_residual_block(x, pf, tr, params,
+                                                tap_delta=delta,
+                                                threshold=thr, rprelu=rp)
+                want = binary_residual_block_plain(
+                    x, pf, tr, params, unpacked_filter=pm1, threshold=thr,
+                    rprelu=rp)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"ReActNet form b{batch} {h}x{w}x{c} debug={checked}: "
+                      f"kernel != plain (max |diff| "
+                      f"{(got.float() - want.float()).abs().max().item()})")
+                cases += 1
+    print(f"[compare] ReActNet form: {cases} cases equal to the plain "
+          f"version ({len(shapes)} shapes, b1/b8/b128, both builds)",
+          flush=True)
+    return cases
+
+
+def reactnet_phase(dev, card):
+    """``--reactnet-only``: the block kernel's ReActNet form against its
+    plain version at ReActNet-A's stride-1 shapes (b1, b8, b128, both
+    builds), the 9 blocks of a b128 forward timed in that form, without
+    its threshold and RPReLU, and as the unfused chain, and ReActNet-A b128
+    through ``Interpreter``: launches, thresholded launches and RPReLUs a
+    forward, the logits against the same forward with every RPReLU
+    unfused, both timed, the fused one profiled."""
+    import torch
+
+    from compute_engine_tpu_torch.kernels.residual import (
+        binary_residual_block, rprelu_plain)
+    from compute_engine_tpu_torch.models import (PackedBuilder,
+                                                 convert_model, get_model)
+    from compute_engine_tpu_torch.models.builder import (RPRELU_KEYS,
+                                                         _float_view, rprelu)
+    from compute_engine_tpu_torch.runtime import Interpreter
+
+    from portbench import images, spec, system
+
+    cases = react_compare(dev)
+
+    # The 9 stride-1 blocks of a b128 forward, by CUDA-graph replay.
+    cfg = spec.config("reactnet_a")
+    counts = spec.module("counts", cfg["counts"])
+    blocks = [(h, w, c) for h, w, c, _, stride in react_blocks()
+              if stride == 1]
+    forms = {"react": 0.0, "plain_form": 0.0, "unfused": 0.0}
+    for i, (h, w, c) in enumerate(blocks):
+        x, pf, tr, params, delta, _, thr, rp = react_case(128, h, w, c, dev,
+                                                          seed=i)
+
+        def unfused():
+            y = binary_residual_block(x.float() + thr, pf, tr, params,
+                                      has_residual=False, tap_delta=delta)
+            return rprelu_plain(x + y.to(x.dtype), *rp)
+
+        forms["react"] += time_ms(lambda: binary_residual_block(
+            x, pf, tr, params, tap_delta=delta, threshold=thr, rprelu=rp),
+            reps=20)
+        forms["plain_form"] += time_ms(lambda: binary_residual_block(
+            x, pf, tr, params, tap_delta=delta), reps=20)
+        forms["unfused"] += time_ms(unfused, reps=20)
+    _, floor_s = counts.residual_blocks(cfg, 128)
+    print(f"[react-time] ReActNet-A's 9 stride-1 blocks a b128 forward: "
+          f"ReActNet form {forms['react']:.4f} ms, the same blocks without "
+          f"threshold and RPReLU {forms['plain_form']:.4f} ms, the unfused "
+          f"chain (shifted input, conv, add, RPReLU) {forms['unfused']:.4f} "
+          f"ms, floor {floor_s * 1e3:.4f} ms (bytes) [{card}]", flush=True)
+
+    # ReActNet-A b128 through Interpreter, fused and with every RPReLU
+    # unfused.
+    model = get_model("reactnet_a")
+    ref = spec.module("reference", cfg["reference"])
+    seed = 2147626201
+    params = ref.make_params(cfg, system.derive(seed, "weights"), dev)
+    layers = convert_model(model, params)
+    x = images.float_images(128, 224, 224, 3,
+                            system.generator(seed, "inputs", dev), dev)
+    fused_rprelu = PackedBuilder.rprelu
+    runs = {}
+    for label in ("fused", "unfused"):
+        if label == "unfused":
+            PackedBuilder.rprelu = lambda self, z, name: rprelu(
+                _float_view(z),
+                *(self.layers[name][f"rprelu_{k}"] for k in RPRELU_KEYS))
+        try:
+            interp = Interpreter(model, layers, output_mode="logits",
+                                 device=dev)
+            interp(x)  # compiles
+            before = (binary_residual_block.launches,
+                      binary_residual_block.threshold_launches,
+                      rprelu.launches, rprelu.fused)
+            logits = interp(x).clone()
+            after = (binary_residual_block.launches,
+                     binary_residual_block.threshold_launches,
+                     rprelu.launches, rprelu.fused)
+            ms = time_ms(lambda: interp(x), reps=20, graph=False)
+            busy = (profile_forward(lambda: interp(x), top=16)
+                    if label == "fused" else None)
+            runs[label] = dict(
+                logits=logits, ms=ms, busy_ms=busy,
+                **dict(zip(("block", "threshold", "rprelu", "fused"),
+                           (a - b for a, b in zip(after, before)))))
+            del interp
+        finally:
+            PackedBuilder.rprelu = fused_rprelu
+        r = runs[label]
+        print(f"[reactnet] b128 Interpreter, RPReLU {label}: {r['block']} "
+              f"block launch(es), {r['threshold']} thresholded, "
+              f"{r['rprelu']} RPReLUs of which {r['fused']} fused; "
+              f"{ms:.4f} ms a forward (20 calls) [{card}]", flush=True)
+    check((runs["fused"]["block"], runs["fused"]["threshold"],
+           runs["fused"]["rprelu"], runs["fused"]["fused"]) == (9, 9, 26, 9),
+          f"ReActNet-A b128: launches {runs['fused']}")
+    check(runs["unfused"]["threshold"] == 0 and runs["unfused"]["fused"] == 0,
+          "the unfused forward ran the ReActNet form")
+    same = torch.equal(runs["fused"]["logits"], runs["unfused"]["logits"])
+    check(same, "ReActNet-A b128: fused and unfused logits differ")
+    print(f"[reactnet] logits of the fused and the unfused forward "
+          f"torch.equal: {same}", flush=True)
+    return {"compare_cases": cases, "block_ms": forms,
+            "floor_ms": floor_s * 1e3,
+            "forwards": {k: {kk: vv for kk, vv in v.items()
+                             if kk != "logits"} for k, v in runs.items()}}
+
+
 def selection_phase(dev, card):
     """Phase 6(a): the planner's cells for QuickNet and BinaryAlexNet at
     batch 128, one per shape and table consultation, measured against an
@@ -3359,6 +3608,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     if "--transition-only" in args:
         print(json.dumps({"transition": transition_phase(dev, card)}))
         return 0
+    if "--reactnet-only" in args:
+        print(json.dumps({"reactnet": reactnet_phase(dev, card)}))
+        return 0
     if "--train-only" in args:
         models = TRAIN_MODELS
         if "--models" in args:
@@ -3435,6 +3687,7 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     dense_compare(np.random.default_rng(45), dev)
     stem_compare(np.random.default_rng(23), dev)
     transition_compare(dev)
+    react_compare(dev)
 
     gemm_err = {"bgemm": 0.0, "bgemm_splitk": 0.0, "bgemm_int8": 0.0}
     gemm_cases = [(f"{name} {m}x{kw}x{n}", (m, kw, n, kind), {})
@@ -3444,6 +3697,9 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
     gemm_cases += [(f"QuickNet {name} {m}x{kw}x{n}", (m, kw, n, "int8"),
                     {"form": "bgemm_int8"})
                    for name, m, kw, n in QUICKNET_INT8_GEMMS]
+    gemm_cases += [(f"{label} {m}x{kw}x{n}", (m, kw, n, "float"),
+                    {"bn": True})
+                   for label, m, kw, n in react_pointwise_gemms(128)]
     m, kw, n = RAGGED_GEMM
     gemm_cases += [(f"ragged {m}x{kw}x{n}", (m, kw, n, kind), {})
                    for kind in ("accum", "float", "int8", "bitpacked")]
@@ -3455,9 +3711,12 @@ def run_phases(args, root, dev, card, device_kind, rng, rng8, tmp):
                     (m, kw, n, kind), {"max_block_kw": SPLITK_BLOCK_KW})
                    for kind in ("accum", "float", "int8", "bitpacked")]
     for label, (m, kw, n, kind), opts in gemm_cases:
-        lhs, rhs, kwargs = gemm_case(
-            rng8 if opts.get("form") == "bgemm_int8" else rng, m, kw, n, kind,
-            dev, n_major=opts.get("n_major", True))
+        if opts.get("bn"):
+            lhs, rhs, kwargs = bn_gemm_case(rng, m, kw, n, dev)
+        else:
+            lhs, rhs, kwargs = gemm_case(
+                rng8 if opts.get("form") == "bgemm_int8" else rng, m, kw, n,
+                kind, dev, n_major=opts.get("n_major", True))
         if opts.get("unaligned"):  # one word into a larger allocation
             lhs = torch.cat([lhs.new_zeros(1), lhs.reshape(-1)])[1:].view(m, kw)
             rhs = torch.cat([rhs.new_zeros(1), rhs.t().reshape(-1)])[1:].view(

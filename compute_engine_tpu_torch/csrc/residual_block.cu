@@ -75,6 +75,13 @@
 //    other blocks' 3x3 neighbourhoods, so out lies apart from every channel
 //    x reads (the caller copies it into place). It is a kernel of its own
 //    name, the same body, so that a profile tells it from the other forms.
+//  * ReActNet's form (react_residual_block_kernel; bf16, zero padding, the
+//    add of x): the band signs (float)x + threshold[c] in float32, a learned
+//    per-input-channel shift, while the add reads x itself; after the add,
+//    rounded to the activation type as the unfused chain stores it, RPReLU in
+//    float32, t = z + shift_in[co], t < 0 ? slope[co] t : t, + shift_out[co]
+//    (each product and sum rounded apart), with one more rounding at the
+//    store. A kernel of its own name; the other forms compile none of it.
 //  * Registers are capped at 128 a thread (16 warps an SM), of which 64 are
 //    accumulators.
 //  * Debug build (-DCE_DEBUG_CHECKS, debug_checks.cuh): the invariant of the
@@ -199,6 +206,46 @@ __device__ __forceinline__ Vec8<__nv_bfloat16> pack8(const float (&f)[8],
   return {make_uint4(u[0], u[1], u[2], u[3])};
 }
 
+// A float rounded to the activation type and back: what a store of it holds.
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ReActNet's block: the learned shift of the signs' input (C values) and the
+// RPReLU after the add (C_out values each). Null in every other form.
+struct ReAct {
+  const float* threshold;
+  const float* shift_in;
+  const float* slope;
+  const float* shift_out;
+};
+
+// Eight consecutive floats from p, as two 16-byte loads where p is aligned.
+__device__ __forceinline__ void load8f(const float* p, bool vec,
+                                       float (&f)[8]) {
+  if (vec) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+    f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = __ldg(p + j);
+  }
+}
+
+// RPReLU of the stored sum z: (z + si) scaled by sl where negative, + so.
+__device__ __forceinline__ float rprelu(float z, float si, float sl,
+                                        float so) {
+  float t = __fadd_rn(z, si);
+  t = t < 0.f ? __fmul_rn(t, sl) : t;
+  return __fadd_rn(t, so);
+}
+
 struct Shape {
   int N, H, W, C, CO, CW;
   int XS, OS;      // elements between pixels of x (>= C) and of out (>= CO)
@@ -242,14 +289,18 @@ __device__ __forceinline__ bool writes_read_channel(const T* x, const T* dst,
 
 // The block's body; kTail adds the residual from x's last C_out channels
 // (needs kResidual).
-template <typename T, bool kResidual, bool kTail, bool kZeroPad, int WARPS>
+// kReAct: ReActNet's threshold and RPReLU (needs the add of x itself).
+template <typename T, bool kResidual, bool kTail, bool kZeroPad, int WARPS,
+          bool kReAct = false>
 __device__ __forceinline__ void block_body(
     const T* __restrict__ x, const uint32_t* __restrict__ filt,
     const float* __restrict__ mul, const float* __restrict__ bias,
     const int* __restrict__ delta, T* __restrict__ out, const Shape& s,
     int tiles_per_block, int cmin, int cmax, int vec_x, int vec_f,
-    int vec_out) {
+    int vec_out, const ReAct& ra = ReAct{}) {
   static_assert(kResidual || !kTail, "the tail form adds a residual");
+  static_assert(!kReAct || (kResidual && !kTail),
+                "ReActNet's form adds x itself");
   constexpr int kThreads = 32 * WARPS, BM = 16 * kMT * WARPS;
   constexpr int NB = kNT / WARPS;  // column tiles whose popcounts a warp adds
   static_assert(NB * WARPS == kNT, "the warps share out the column tiles");
@@ -346,7 +397,22 @@ __device__ __forceinline__ void block_body(
     for (int u = 0; u < kSignLoads; ++u) {
       uint32_t bits = 0;
       if (src[u]) {
-        if (vec_x) {
+        if constexpr (kReAct) {  // the sign of (float)x + threshold
+          float f[8], th[8];
+          if (vec_x) {
+            unpack8(v[u], f);
+            load8f(ra.threshold + c[u], true, th);
+          } else {
+            for (int j = 0; j < 8; ++j) {
+              const bool in = c[u] + j < s.C;
+              f[j] = in ? to_float(src[u][j]) : 0.f;
+              th[j] = in ? __ldg(ra.threshold + c[u] + j) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            bits |= (__fadd_rn(f[j], th[j]) < 0.f ? 1u : 0u) << j;
+        } else if (vec_x) {
           bits = negative_bits(v[u]);
         } else {
           for (int j = 0; j < 8 && c[u] + j < s.C; ++j)
@@ -535,15 +601,33 @@ __device__ __forceinline__ void block_body(
             unpack8(xv[u], fx);
 #pragma unroll
             for (int j = 0; j < 8; ++j) fy[j] = __fadd_rn(fx[j], fy[j]);
+            if constexpr (kReAct) {  // RPReLU of the sum as it is stored
+              float si[8], sl[8], so[8];
+              load8f(ra.shift_in + co, true, si);
+              load8f(ra.slope + co, true, sl);
+              load8f(ra.shift_out + co, true, so);
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                fy[j] = rprelu(round_to<T>(fy[j]), si[j], sl[j], so[j]);
+            }
             v = pack8(fy, T());
           }
           store8(dst, v);
         } else {
-          for (int j = 0; j < 8 && co + j < s.CO; ++j)
-            dst[j] = kResidual
-                ? from_float<T>(__fadd_rn(to_float(res[pix[u] * rs + co + j]),
-                                          to_float(y[j])))
-                : y[j];
+          for (int j = 0; j < 8 && co + j < s.CO; ++j) {
+            if constexpr (kReAct) {
+              const float z = round_to<T>(__fadd_rn(
+                  to_float(res[pix[u] * rs + co + j]), to_float(y[j])));
+              dst[j] = from_float<T>(rprelu(z, __ldg(ra.shift_in + co + j),
+                                            __ldg(ra.slope + co + j),
+                                            __ldg(ra.shift_out + co + j)));
+            } else {
+              dst[j] = kResidual
+                  ? from_float<T>(__fadd_rn(
+                        to_float(res[pix[u] * rs + co + j]), to_float(y[j])))
+                  : y[j];
+            }
+          }
         }
       }
     }
@@ -575,6 +659,16 @@ tail_residual_block_kernel(CE_BLOCK_ARGS) {
       vec_f, vec_out);
 }
 
+// ReActNet's form: the threshold in the signing and RPReLU after the add of
+// x itself, zero-padded; its own name, so that a profile tells it apart.
+template <typename T, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, kMinWarps / WARPS)
+react_residual_block_kernel(CE_BLOCK_ARGS, ReAct ra) {
+  block_body<T, true, false, true, WARPS, true>(
+      x, filt, mul, bias, delta, out, s, tiles_per_block, cmin, cmax, vec_x,
+      vec_f, vec_out, ra);
+}
+
 #undef CE_BLOCK_ARGS
 
 // Shared memory of a block, in bytes: filter tile, staged outputs, band,
@@ -590,11 +684,27 @@ size_t shared_bytes(const Shape& s) {
       sizeof(T) * (size_t)BM * kStageStride;
 }
 
-template <typename T, bool kResidual, bool kTail, bool kZeroPad, int WARPS>
+// The kernel of a form, as the address cudaFuncSetAttribute takes; only the
+// one asked for is instantiated.
+template <typename T, bool kResidual, bool kTail, bool kZeroPad, int WARPS,
+          bool kReAct>
+const void* kernel_of() {
+  if constexpr (kReAct)
+    return reinterpret_cast<const void*>(react_residual_block_kernel<T, WARPS>);
+  else if constexpr (kTail)
+    return reinterpret_cast<const void*>(
+        tail_residual_block_kernel<T, kZeroPad, WARPS>);
+  else
+    return reinterpret_cast<const void*>(
+        residual_block_kernel<T, kResidual, kZeroPad, WARPS>);
+}
+
+template <typename T, bool kResidual, bool kTail, bool kZeroPad, int WARPS,
+          bool kReAct = false>
 int launch(const void* x, const void* filt, const void* mul, const void* bias,
            const void* delta, void* out, const Shape& s, int tiles_per_block,
            int plan_blocks, int plan_smem_bytes, int cmin, int cmax,
-           cudaStream_t stream) {
+           cudaStream_t stream, const ReAct& ra = ReAct{}) {
   constexpr int BM = 16 * kMT * WARPS;
   const size_t smem = shared_bytes<T, kZeroPad, WARPS>(s);
   const int n_tiles = (s.CO + kBN - 1) / kBN;
@@ -607,14 +717,16 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
   auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  // 16-byte accesses need whole groups of 8 channels and aligned rows.
-  const int vec_x = s.C % 8 == 0 && s.XS % 8 == 0 && aligned(x);
+  // 16-byte accesses need whole groups of 8 channels and aligned rows (and
+  // ReActNet's vectors aligned, read 8 channels at a time beside them).
+  const int vec_x = s.C % 8 == 0 && s.XS % 8 == 0 && aligned(x) &&
+      (!kReAct || aligned(ra.threshold));
   const int vec_f = s.CW % 4 == 0 && aligned(filt);
   const int vec_out =
-      s.CO % 8 == 0 && s.OS % 8 == 0 && aligned(out) && (!kResidual || vec_x);
+      s.CO % 8 == 0 && s.OS % 8 == 0 && aligned(out) && (!kResidual || vec_x) &&
+      (!kReAct || (aligned(ra.shift_in) && aligned(ra.slope) &&
+                   aligned(ra.shift_out)));
 
-  auto kernel = kTail ? tail_residual_block_kernel<T, kZeroPad, WARPS>
-                      : residual_block_kernel<T, kResidual, kZeroPad, WARPS>;
   // Raised once per instantiation and device: the attribute is the current
   // device's.
   static size_t allowed[kMaxDevices] = {};
@@ -624,35 +736,53 @@ int launch(const void* x, const void* filt, const void* mul, const void* bias,
   if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (smem > 48 * 1024 && smem > allowed[device]) {
     e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel_of<T, kResidual, kTail, kZeroPad, WARPS, kReAct>(),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     allowed[device] = smem;
   }
   const dim3 grid((unsigned)blocks);
-  kernel<<<grid, 32 * WARPS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(filt),
-      static_cast<const float*>(mul), static_cast<const float*>(bias),
-      static_cast<const int*>(delta), static_cast<T*>(out), s,
-      tiles_per_block, cmin, cmax, vec_x, vec_f, vec_out);
+  const T* xt = static_cast<const T*>(x);
+  const uint32_t* ft = static_cast<const uint32_t*>(filt);
+  const float* mt = static_cast<const float*>(mul);
+  const float* bt = static_cast<const float*>(bias);
+  const int* dt = static_cast<const int*>(delta);
+  T* ot = static_cast<T*>(out);
+  if constexpr (kReAct)
+    react_residual_block_kernel<T, WARPS><<<grid, 32 * WARPS, smem, stream>>>(
+        xt, ft, mt, bt, dt, ot, s, tiles_per_block, cmin, cmax, vec_x, vec_f,
+        vec_out, ra);
+  else if constexpr (kTail)
+    tail_residual_block_kernel<T, kZeroPad, WARPS>
+        <<<grid, 32 * WARPS, smem, stream>>>(
+            xt, ft, mt, bt, dt, ot, s, tiles_per_block, cmin, cmax, vec_x,
+            vec_f, vec_out);
+  else
+    residual_block_kernel<T, kResidual, kZeroPad, WARPS>
+        <<<grid, 32 * WARPS, smem, stream>>>(
+            xt, ft, mt, bt, dt, ot, s, tiles_per_block, cmin, cmax, vec_x,
+            vec_f, vec_out);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kResidual, bool kTail, bool kZeroPad>
+template <typename T, bool kResidual, bool kTail, bool kZeroPad,
+          bool kReAct = false>
 int launch_warps(int warps, const void* x, const void* filt, const void* mul,
                  const void* bias, const void* delta, void* out,
                  const Shape& s, int tiles, int blocks, int smem_bytes,
-                 int cmin, int cmax, cudaStream_t stream) {
+                 int cmin, int cmax, cudaStream_t stream,
+                 const ReAct& ra = ReAct{}) {
   if (warps == 8)
-    return launch<T, kResidual, kTail, kZeroPad, 8>(
+    return launch<T, kResidual, kTail, kZeroPad, 8, kReAct>(
         x, filt, mul, bias, delta, out, s, tiles, blocks, smem_bytes, cmin,
-        cmax, stream);
+        cmax, stream, ra);
   if (warps == 4)
-    return launch<T, kResidual, kTail, kZeroPad, 4>(
+    return launch<T, kResidual, kTail, kZeroPad, 4, kReAct>(
         x, filt, mul, bias, delta, out, s, tiles, blocks, smem_bytes, cmin,
-        cmax, stream);
-  return launch<T, kResidual, kTail, kZeroPad, 2>(
+        cmax, stream, ra);
+  return launch<T, kResidual, kTail, kZeroPad, 2, kReAct>(
       x, filt, mul, bias, delta, out, s, tiles, blocks, smem_bytes, cmin,
-      cmax, stream);
+      cmax, stream, ra);
 }
 
 // residual: 0 none, 1 x itself, 2 x's last c_out channels (the tail form).
@@ -664,7 +794,7 @@ int launch_form(int residual, bool zero_pad, int warps, const void* x,
                 cudaStream_t stream) {
   auto run = [&](auto launcher) {
     return launcher(warps, x, filt, mul, bias, delta, out, s, tiles, blocks,
-                    smem_bytes, cmin, cmax, stream);
+                    smem_bytes, cmin, cmax, stream, ReAct{});
   };
   if (zero_pad)
     return residual == 2 ? run(launch_warps<T, true, true, true>)
@@ -685,7 +815,10 @@ int launch_form(int residual, bool zero_pad, int warps, const void* x,
 // exceeds its channels. has_residual: 0 no add; 1 the add of x, which reads
 // x at c and needs c == c_out and x_stride == c; 2 the tail form, the add of
 // x's last c_out channels (c >= c_out), whose out must lie apart from every
-// channel x is read at. The launch
+// channel x is read at. threshold, shift_in, slope and shift_out: null, or
+// all four for ReActNet's form (bf16, zero padding, has_residual 1): c
+// float32 values added to x before the sign, and c_out each of the RPReLU
+// after the add. The launch
 // plan is the caller's (kernels/residual.py::plan_residual_block): warps, 2,
 // 4 or 8 a block, 32 output positions each; tiles_per_block, the tiles of 64
 // output channels that a block computes from its band; and the number of
@@ -693,7 +826,10 @@ int launch_form(int residual, bool zero_pad, int warps, const void* x,
 // what this kernel needs. Returns a cudaError_t value (0 = success).
 extern "C" int ce_residual_block(const void* x, const void* filt,
                                  const void* mul, const void* bias,
-                                 const void* tap_delta, void* out,
+                                 const void* tap_delta,
+                                 const void* threshold, const void* shift_in,
+                                 const void* slope, const void* shift_out,
+                                 void* out,
                                  int n, int h, int w, int c, int c_out,
                                  int x_stride, int out_stride,
                                  int clamp_min, int clamp_max,
@@ -725,6 +861,19 @@ extern "C" int ce_residual_block(const void* x, const void* filt,
   s.CWs = s.CW % 8 == 0 ? s.CW + 4 : s.CW;
   s.groups_magic = (uint32_t)(0x100000000ULL / (4 * s.CW)) + 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ReAct ra{static_cast<const float*>(threshold),
+                 static_cast<const float*>(shift_in),
+                 static_cast<const float*>(slope),
+                 static_cast<const float*>(shift_out)};
+  const bool react = ra.threshold || ra.shift_in || ra.slope || ra.shift_out;
+  if (react) {  // instantiated for ReActNet's blocks alone
+    if (!ra.threshold || !ra.shift_in || !ra.slope || !ra.shift_out ||
+        dtype != 1 || has_residual != 1 || tap_delta == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch_warps<__nv_bfloat16, true, false, true, true>(
+        warps, x, filt, mul, bias, tap_delta, out, s, tiles_per_block, blocks,
+        smem_bytes, clamp_min, clamp_max, st, ra);
+  }
   auto form = dtype == 0 ? launch_form<float> : launch_form<__nv_bfloat16>;
   return form(has_residual, tap_delta != nullptr, warps, x, filt, mul,
               bias, tap_delta, out, s, tiles_per_block, blocks, smem_bytes,

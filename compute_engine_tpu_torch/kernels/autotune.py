@@ -18,12 +18,15 @@ writes the table (by default the package's ``kernel_table_h100.json``) with
 its ``_meta`` (the card's name and power limit, the software, the batches
 and every measured time), checkpointing after every cell. Without
 ``--fresh`` it starts from the committed table and measures only what that
-misses. ``--geometry G`` (e.g. ``s1/zero``, after a new candidate appeared
-at it) takes the committed table's entries at G out, exact and bucket, and
-measures them again: every other entry, and every other field and time of
-``_meta``, is written back as it was; the new times replace their rows of
-``raw_ms`` and ``_meta["remeasured"][G]`` names the card and the software
-that measured them.
+misses. Two options measure part of the committed table: ``--models A,B``
+plans those zoo models alone (a new model's shapes), and ``--geometry G``
+(e.g. ``s1/zero``, after a new candidate appeared at it) takes the
+committed table's entries at G out, exact and bucket, and measures them
+again. Either way every other entry, and every field and time of
+``_meta``, is written back as it was; the new times go into ``raw_ms`` (a
+row of the same cell replaced), and ``_meta["partial_runs"]`` gains a
+record of the run: its options, the card and software that measured, the
+labels of the cells it measured and the entries (key, geometry) it wrote.
 """
 
 from __future__ import annotations
@@ -35,13 +38,13 @@ import time
 
 from . import select
 
-__all__ = ["plan", "measure", "cell_label", "main"]
+__all__ = ["plan", "measure", "cell_label", "partial_meta", "main"]
 
 # Main-path models first: their layers are measured at their own keys.
 MODEL_ORDER = ("quicknet", "binary_alexnet", "quicknet_small",
                "quicknet_large", "birealnet18", "binary_resnet_e18",
                "binary_densenet28", "binary_densenet37", "binary_densenet45",
-               "meliusnet22")
+               "meliusnet22", "reactnet_a")
 BATCHES = (128, 1, 8)
 _SHAPE_KEYS = ("h", "w", "c_in", "c_out", "fh", "fw", "stride", "padding",
                "pad_value")
@@ -149,14 +152,24 @@ def forget_geometry(geo, table=None) -> int:
     return gone
 
 
-def remeasured_meta(old, raw, geo, now):
+def partial_meta(old, raw, run, cells, now):
     """The committed ``_meta`` with the times of ``raw`` in its ``raw_ms``
-    (a row of the same cell replaced) and ``now`` (``_meta``'s card and
-    software fields, from this run) under ``remeasured[geo]``."""
+    (a row of the same cell replaced) and a record of this partial run
+    appended to ``partial_runs``: ``run`` (its options), ``now``'s card and
+    software fields, the labels of ``cells`` and the entries (key text,
+    geometry) their measurement wrote, exact and bucket."""
     meta = json.loads(json.dumps(old))
     meta["raw_ms"].update(raw)
-    meta.setdefault("remeasured", {})[geo] = {
-        k: now[k] for k in ("card", "torch", "cuda", "timer", "written_by")}
+    entries = set()
+    for kind, r, _, domain, out_kind in cells:
+        key, bucket, geo = _keys(kind, r, domain, out_kind)
+        entries |= {("|".join(map(str, k)), geo) for k in (key, bucket)}
+    meta.setdefault("partial_runs", []).append(
+        {"run": run,
+         **{k: now[k] for k in ("card", "torch", "cuda", "timer",
+                                "written_by")},
+         "cells": sorted(cell_label(c) for c in cells),
+         "entries": sorted(map(list, entries))})
     return meta
 
 
@@ -168,39 +181,50 @@ def main(argv=None):
     p.add_argument("--geometry",
                    help="measure the committed entries at this geometry "
                         "again (e.g. s1/zero), keeping every other one")
+    p.add_argument("--models",
+                   help="plan these zoo models alone (comma-separated), "
+                        "keeping every committed entry and _meta field")
     args = p.parse_args(argv)
+    if args.models and (args.fresh or args.geometry):
+        p.error("--models adds to the committed table: not with --fresh "
+                "or --geometry")
+    run = (f"--models {args.models}" if args.models
+           else f"--geometry {args.geometry}" if args.geometry else None)
     select.reset_table()
     if args.fresh:
         select.kernel_table().clear()
-    if args.geometry:
+    if run:
         with open(select._TABLE_PATH) as f:
             committed = json.load(f)["_meta"]
+    if args.geometry:
         print(f"took {forget_geometry(args.geometry)} entries at "
               f"{args.geometry} out", flush=True)
-    cells = plan()
+    cells = plan(tuple(args.models.split(",")) if args.models
+                 else MODEL_ORDER)
     if args.geometry:
         cells = [c for c in cells if _cell_geometry(c) == args.geometry]
 
-    def meta(raw):
-        if args.geometry:
-            return remeasured_meta(committed, raw, args.geometry, _meta({}))
+    def meta(done):
+        if run:
+            return partial_meta(committed, raw, run, done, _meta({}))
         return _meta(raw)
 
     print(f"{len(cells)} cells to measure", flush=True)
-    raw = {}
+    raw, done = {}, []
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     for i, cell in enumerate(cells):
         t0 = time.perf_counter()
         per = measure(cell)
         label = cell_label(cell)
         raw[label] = per
+        done.append(cell)
         best = min(per, key=per.get)
         print(f"[{i + 1}/{len(cells)}] {label}: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())
               + f" -> {best} ({time.perf_counter() - t0:.1f} s)", flush=True)
-        select.save_table(args.out, meta(raw))
+        select.save_table(args.out, meta(done))
     if not cells:
-        select.save_table(args.out, meta(raw))
+        select.save_table(args.out, meta(done))
     print(f"wrote {args.out} ({len(select.kernel_table())} entries)")
 
 

@@ -6,7 +6,10 @@ Each wrapper keeps a plain integer count of its launches on itself
 ``models.builder.concat.launches``, and of those the ones done in place,
 with nothing copied, ``concat.in_place``; its tail add,
 ``models.builder.add_tail.launches``, and of those the ones the block kernel
-fused, ``add_tail.fused``), so that a run can show which kernels
+fused, ``add_tail.fused``; its RPReLU, ``models.builder.rprelu.launches``,
+and of those the ones in the block kernel's epilogue, ``rprelu.fused``; the
+block kernel's ReActNet form, ``binary_residual_block.threshold_launches``),
+so that a run can show which kernels
 its path went through. Eagerly a wrapper adds one where it launches. While
 a CUDA graph is captured nothing runs: the wrappers of the capturing thread
 write into a ledger instead (``recording``), and whoever replays the graph

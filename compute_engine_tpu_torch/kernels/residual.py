@@ -48,6 +48,16 @@ place. It is its own kernel, ``tail_residual_block_kernel``; its debug
 build also checks that no store lands on a channel the launch reads (bit
 32).
 
+ReActNet's form (``threshold=`` and ``rprelu=``, ReActNet-A's stride-1
+blocks): the band signs ``(float)x + threshold``, a learned shift per input
+channel, in float32, while the add reads ``x`` itself; after the add, whose
+sum is rounded to ``x``'s dtype as the unfused chain stores it, RPReLU
+(``rprelu_plain``) in float32, rounded once more at the store. It is its own
+kernel, ``react_residual_block_kernel``, instantiated for what the model
+runs alone: bfloat16, zero padding, the add of ``x``; the plain version takes
+every form. Its launches also count in ``binary_residual_block.
+threshold_launches``.
+
 Inside ``kernels.debug_checks()`` the kernel's debug build runs, and the
 plain version checks, the Pallas kernel's debug invariant ``|t| <= K``
 (K = 9 C) for the +-1 conv ``t`` (``kernels/debug.py``).
@@ -67,7 +77,8 @@ from . import counts, debug
 from .bconv2d import bconv2d_mxu_float_in
 
 __all__ = ["binary_residual_block", "binary_residual_block_plain",
-           "residual_block_supported", "plan_residual_block"]
+           "residual_block_supported", "plan_residual_block",
+           "rprelu_plain"]
 
 SM_COUNT = 132                 # H100 SXM
 MAX_SHARED_BYTES = 232_448     # 227 KB a block may use
@@ -108,13 +119,27 @@ def residual_block_supported(x_shape, params: BConv2DParams, c_out: int,
             and params.padding == Padding.SAME)
 
 
+def rprelu_plain(z, shift_in, slope, shift_out):
+    """ReActNet's RPReLU of ``z`` with per-channel vectors: ``t = z +
+    shift_in``, ``t * slope`` where ``t < 0``, ``+ shift_out``, in float32
+    from ``z``'s values (each product and sum rounded apart), rounded once to
+    ``z``'s dtype."""
+    t = z.to(torch.float32) + shift_in
+    t = torch.where(t < 0, t * slope, t)
+    return (t + shift_out).to(z.dtype)
+
+
 def binary_residual_block_plain(x, packed_filter, transform: OutputTransform,
                                 params: BConv2DParams, has_residual=True,
                                 unpacked_filter=None, tap_delta=None,
-                                _debug_k=None, out=None):
+                                _debug_k=None, out=None, threshold=None,
+                                rprelu=None):
     """Plain PyTorch version: the unfused conv, rounded to ``x.dtype``, plus
     ``x`` (``"tail"``: plus ``x``'s last C_out channels); zero padding is
-    the integer conv's own (``tap_delta`` is not read). ``x`` and ``out``
+    the integer conv's own (``tap_delta`` is not read). ``threshold`` (C
+    float32 values) makes the conv read the signs of ``x + threshold`` in
+    float32; ``rprelu`` (``(shift_in, slope, shift_out)``, C_out float32
+    values each) applies ``rprelu_plain`` to the result. ``x`` and ``out``
     take the layouts the kernel takes (``_pixel_strides``); the result is
     written into ``out`` where it is given. Inside ``kernels.
     debug_checks()`` it also holds ``|t| <= K`` (``_debug_k`` declares a K
@@ -123,14 +148,18 @@ def binary_residual_block_plain(x, packed_filter, transform: OutputTransform,
     _check_tail(x, c_out, has_residual)
     _pixel_strides(x, c_out, has_residual, out)
     debug.require_enabled(_debug_k=_debug_k)
+    signed = x if threshold is None else x.to(torch.float32) + threshold
     if debug.enabled():
-        _check_conv_bound(x, packed_filter, params, unpacked_filter, _debug_k)
-    y = bconv2d_mxu_float_in(x, packed_filter, transform, params,
+        _check_conv_bound(signed, packed_filter, params, unpacked_filter,
+                          _debug_k)
+    y = bconv2d_mxu_float_in(signed, packed_filter, transform, params,
                              output_kind="float",
                              unpacked_filter=unpacked_filter).to(x.dtype)
     form = _form(has_residual)
     if form != "none":
         y = (x if form == "own" else x[..., x.shape[-1] - c_out:]) + y
+    if rprelu is not None:
+        y = rprelu_plain(y, *rprelu)
     return y if out is None else out.copy_(y)
 
 
@@ -266,7 +295,7 @@ def _library(debug_build=False):
     lib = load("residual_block", debug_build)
     fn = lib.ce_residual_block
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ce_error_string.argtypes = [ctypes.c_int]
@@ -275,10 +304,13 @@ def _library(debug_build=False):
 
 
 def _launch(x, packed_filter, transform, has_residual, block=None,
-            debug_k=None, tap_delta=None, out=None, debug_overlap=False):
+            debug_k=None, tap_delta=None, out=None, debug_overlap=False,
+            threshold=None, rprelu=None):
     """Launches the kernel, zero-padded where ``tap_delta`` (the (C_out, 9)
-    int32 table) is given, into ``out`` where it is given. ``block`` is
-    (warps, tiles_per_block) in place of the planner's choice, for a sweep
+    int32 table) is given, into ``out`` where it is given; ReActNet's form
+    where ``threshold`` and ``rprelu`` are (both, on a bf16 ``x`` with the
+    add of ``x`` and zero padding: the form's one instantiation). ``block``
+    is (warps, tiles_per_block) in place of the planner's choice, for a sweep
     over block sizes; ``debug_k`` is the K that the debug build holds
     ``|t|`` to (9 C by default); ``debug_overlap`` lets an ``out`` over
     the channels ``x`` reads through, for the tail form's debug check to
@@ -307,6 +339,8 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
             raise ValueError(f"tap_delta must be ({c_out}, 9) int32, not "
                              f"{tuple(tap_delta.shape)} {tap_delta.dtype}")
         operands.append(("tap_delta", tap_delta))
+    react = _react_operands(x, has_residual, zero_pad, threshold, rprelu)
+    operands += react
     for name, t in operands:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -333,6 +367,7 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
         rc = lib.ce_residual_block(
             x.data_ptr(), packed_filter.data_ptr(), mul.data_ptr(),
             bias.data_ptr(), tap_delta.data_ptr() if zero_pad else None,
+            *([t.data_ptr() for _, t in react] or [None] * 4),
             out.data_ptr(), n, h, w, c, c_out, x_stride, out_stride,
             int(transform.clamp_min), int(transform.clamp_max),
             _FORM_CODES[_form(has_residual)], _DTYPE_CODES[x.dtype],
@@ -342,24 +377,49 @@ def _launch(x, packed_filter, transform, has_residual, block=None,
         if rc != 0:
             raise RuntimeError("residual block kernel launch failed: "
                                + lib.ce_error_string(rc).decode())
-        _count_launch(zero_pad)
+        _count_launch(zero_pad, bool(react))
         if checked:
             debug.end(lib, stream)
     return out
 
 
-def _count_launch(zero_pad: bool) -> None:
+def _react_operands(x, has_residual, zero_pad, threshold, rprelu):
+    """ReActNet's form's operands, ``[(name, tensor)]`` in the C entry's
+    order, or ``[]`` without them. Raises for a form the kernel has no
+    instantiation of, or for vectors of the wrong size or type."""
+    if threshold is None and rprelu is None:
+        return []
+    if (threshold is None or rprelu is None or x.dtype != torch.bfloat16
+            or _form(has_residual) != "own" or not zero_pad):
+        raise ValueError("the block kernel's threshold and RPReLU run "
+                         "together, on bfloat16, zero-padded, with the add "
+                         "of x: the one form ReActNet's blocks use")
+    operands = [("threshold", threshold),
+                *zip(("shift_in", "slope", "shift_out"), rprelu)]
+    for name, t in operands:
+        if t.shape != (x.shape[-1],) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({x.shape[-1]},) float32, not "
+                             f"{tuple(t.shape)} {t.dtype}")
+    return operands
+
+
+def _count_launch(zero_pad: bool, threshold: bool = False) -> None:
     """One launch of the kernel in ``binary_residual_block.launches``, and in
-    ``zero_pad_launches`` too where it is zero-padded (``kernels.counts``)."""
+    ``zero_pad_launches`` too where it is zero-padded, and in
+    ``threshold_launches`` where it is ReActNet's form (``kernels.counts``).
+    """
     counts.count(binary_residual_block)
     if zero_pad:
         counts.count(binary_residual_block, "zero_pad_launches")
+    if threshold:
+        counts.count(binary_residual_block, "threshold_launches")
 
 
 def binary_residual_block(x, packed_filter, transform: OutputTransform,
                           params: BConv2DParams, has_residual=True,
                           unpacked_filter=None, tap_delta=None,
-                          _debug_k=None, out=None, _debug_overlap=None):
+                          _debug_k=None, out=None, _debug_overlap=None,
+                          threshold=None, rprelu=None):
     """``x + float_transform(bconv3x3_same(sign(x)))`` in one kernel.
 
     Args:
@@ -380,12 +440,19 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
         the result into: dense, or a channel slice of a dense NHWC tensor
         apart from the channels ``x`` reads (``buf[..., w:w + C_out]``).
         Any other operand raises ``ValueError`` (``_pixel_strides``).
+      threshold, rprelu: ReActNet's form, both or neither: the C float32
+        values added to ``x`` before the sign, and ``(shift_in, slope,
+        shift_out)``, C_out float32 values each, of the RPReLU after the add
+        (``rprelu_plain``). The kernel takes them on a bf16 ``x``,
+        zero-padded, with the add of ``x`` (any other form raises); the
+        plain version in every form.
 
     Returns (N, H, W, C_out) in ``x.dtype`` (``out`` where given). CPU
     tensors take the plain version; CUDA tensors take the kernel, which
-    counts its launches in ``binary_residual_block.launches``, and the
-    zero-padded ones also in ``zero_pad_launches`` (under a graph's
-    capture, once per replay: ``kernels.counts``); inside ``kernels.debug_checks()`` its debug build,
+    counts its launches in ``binary_residual_block.launches``, the
+    zero-padded ones also in ``zero_pad_launches`` and ReActNet's form also
+    in ``threshold_launches`` (under a graph's capture, once per replay:
+    ``kernels.counts``); inside ``kernels.debug_checks()`` its debug build,
     which raises ``RuntimeError`` when ``|t| > K`` or a tail-form store
     lands on a channel ``x`` is read at. ``_debug_k`` declares a wrong K
     there, and ``_debug_overlap`` lets an overlapping ``out`` through to the
@@ -403,7 +470,9 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
         return binary_residual_block_plain(x, packed_filter, transform,
                                            params, has_residual,
                                            unpacked_filter,
-                                           _debug_k=_debug_k, out=out)
+                                           _debug_k=_debug_k, out=out,
+                                           threshold=threshold,
+                                           rprelu=rprelu)
     if x.device.type != "cuda":
         raise ValueError(f"no residual block kernel for device {x.device}")
     if params.pad_value == 1:
@@ -412,8 +481,10 @@ def binary_residual_block(x, packed_filter, transform: OutputTransform,
         tap_delta = zero_padding_tap_delta(packed_filter, params)
     return _launch(x, packed_filter, transform, has_residual,
                    debug_k=_debug_k, tap_delta=tap_delta, out=out,
-                   debug_overlap=bool(_debug_overlap))
+                   debug_overlap=bool(_debug_overlap), threshold=threshold,
+                   rprelu=rprelu)
 
 
 binary_residual_block.launches = 0
 binary_residual_block.zero_pad_launches = 0
+binary_residual_block.threshold_launches = 0

@@ -50,7 +50,7 @@ from ..kernels import transition as _transition
 from ..kernels.bconv2d import (bconv2d_mxu_float_in, bconv2d_mxu_s2d,
                                bdense_mxu, bdense_mxu_float_in)
 from ..kernels.bgemm import bgemm
-from ..kernels.residual import binary_residual_block
+from ..kernels.residual import binary_residual_block, rprelu_plain
 from ..kernels.select import layer_lowering
 from ..ops import bconv2d, bmaxpool2d, quantize
 from . import layers as L
@@ -59,7 +59,7 @@ __all__ = ["InitBuilder", "FloatBuilder", "CalibrateBuilder",
            "ConvertBuilder", "PackedBuilder", "Int8Tensor", "init_model",
            "float_apply", "calibrate_model", "convert_model",
            "packed_apply", "prepare_runtime_arrays", "concat", "add_tail",
-           "KERNELS"]
+           "rprelu", "KERNELS"]
 
 # The ``kernel=`` values of PackedBuilder and the entry points above it.
 KERNELS = ("auto", "reference", "bgemm", "mxu", "s2d", "residual")
@@ -93,6 +93,34 @@ class _Base:
         are."""
         return _add_into_tail(x, y)
 
+    def add_repeated(self, y, r):
+        """``r`` added to each of ``y``'s equal parts along its channels,
+        ``y`` as wide as a whole number of ``r``'s (ReActNet's doubling
+        block adds its input to both convs of the pair), with nothing
+        copied to repeat ``r``."""
+        return _add_repeated(y, r)
+
+    def binary_conv_pair(self, x, filters, *, names):
+        """ReActNet's doubling 1x1 pair: two binary 1x1 VALID convs of one
+        input, each ``filters`` wide, with one input shift, side by side on
+        the channel axis (the layers ``names``, in order; each holds the
+        shift, the same values). Here the two convs and a concatenation, as
+        published; ``convert_model`` joins their layers into one conv of
+        twice the width under the first name, which the packed forward
+        runs."""
+        return self.concat([
+            self.binary_conv_bn(x, filters, 1, padding="VALID",
+                                input_shift=True, name=name)
+            for name in names])
+
+    def rprelu(self, x, name):
+        """ReActNet's RPReLU of ``x``, with the vectors that the layer
+        ``name``'s entry holds (``_rprelu_vectors``), by the plain chain
+        (``kernels.residual.rprelu_plain``); the packed forward runs it in a
+        block kernel's epilogue where it can."""
+        return rprelu_plain(x, *(v.to(x.device) for v in
+                                 self._rprelu_vectors(name, x.shape[-1])))
+
     def dense_block(self, x, width):
         """The stream ``x`` entering a dense block whose concatenations
         grow it to ``width`` channels. Only the packed forward makes use of
@@ -123,6 +151,38 @@ def _pair(v):
 def _add_into_tail(x, y):
     k = y.shape[-1]
     return torch.cat([x[..., :-k], x[..., -k:] + y], dim=-1)
+
+
+def _add_repeated(y, r):
+    c = r.shape[-1]
+    if y.shape[-1] % c:
+        raise ValueError(f"{y.shape[-1]} channels are no whole number of "
+                         f"{c}")
+    return (y.unflatten(-1, (-1, c)) + r.unsqueeze(-2)).flatten(-2)
+
+
+def _joined_pair(builder, x, filters, *, names):
+    """``binary_conv_pair`` as ``convert_model`` leaves it: one conv of
+    twice the width, under the first name."""
+    return builder.binary_conv_bn(x, 2 * filters, 1, padding="VALID",
+                                  input_shift=True, name=names[0])
+
+
+def _rprelu_params(p, channels):
+    """The ``(shift_in, slope, shift_out)`` of a parameter-tree entry's
+    RPReLU, checked against the channels it acts on."""
+    r = p["rprelu"]
+    vectors = tuple(torch.as_tensor(r[k]) for k in RPRELU_KEYS)
+    shapes = [tuple(v.shape) for v in vectors]
+    if any(shape != (channels,) for shape in shapes):
+        raise ValueError(f"RPReLU vectors of {shapes} for {channels} "
+                         "channels")
+    return vectors
+
+
+# The keys of an RPReLU in a parameter-tree entry (``p["rprelu"]``); a
+# converted layer holds them as ``rprelu_<key>``.
+RPRELU_KEYS = ("shift_in", "slope", "shift_out")
 
 
 def _on(tree, like):
@@ -191,17 +251,54 @@ class InitBuilder(_Base):
             _on(p["bn"], x))
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
-                       pad_value=1, name, groups=1, dilation=1):
+                       pad_value=1, name, groups=1, dilation=1,
+                       input_shift=False):
         kh, kw = _pair(ksize)
         c = x.shape[-1] // groups
         # Latent real-valued weights, binarised by ste_sign at use.
         kernel = self.rng.uniform(-1, 1,
                                   (kh, kw, c, filters)).astype(np.float32)
         p = self._new(name, kernel, self._bn(filters))
+        if input_shift:
+            # ReActNet's learnable bias before the sign: zeros, as it is
+            # initialised, or drawn where the BN statistics are.
+            p["shift"] = torch.from_numpy(self._vector(x.shape[-1], 0.0, 0.2))
+            x = x + p["shift"].to(x.device)
         return L.batch_norm(
             _float_binary_conv(x, p["kernel"].to(x.device), _pair(stride),
                                padding, pad_value, groups=groups,
                                dilation=_pair(dilation)), _on(p["bn"], x))
+
+    def binary_conv_pair(self, x, filters, *, names):
+        # The pair's one shift is the first conv's, under both names.
+        first, second = names
+        y = self.binary_conv_bn(x, filters, 1, padding="VALID",
+                                input_shift=True, name=first)
+        shift = self.params[first]["shift"]
+        z = self.binary_conv_bn(x + shift.to(x.device), filters, 1,
+                                padding="VALID", name=second)
+        self.params[second]["shift"] = shift
+        return self.concat([y, z])
+
+    def _vector(self, c, mean, spread):
+        """``c`` float32 values: ``mean`` everywhere, or where the BN
+        statistics are drawn, drawn about it by ``spread``."""
+        if not self.randomize_bn:
+            return np.full(c, mean, np.float32)
+        return (mean + spread * self.rng.standard_normal(c)).astype(
+            np.float32)
+
+    def _rprelu_vectors(self, name, c):
+        """Creates the RPReLU of ``c`` channels in the layer ``name``'s
+        entry: zero shifts and slope 0.25 (PyTorch's PReLU), as ReActNet
+        initialises it, or drawn where the BN statistics are."""
+        slope = (np.full(c, 0.25, np.float32) if not self.randomize_bn
+                 else self.rng.uniform(0.05, 0.5, c).astype(np.float32))
+        self.params[name]["rprelu"] = {
+            "shift_in": torch.from_numpy(self._vector(c, 0.0, 0.2)),
+            "slope": torch.from_numpy(slope),
+            "shift_out": torch.from_numpy(self._vector(c, 0.0, 0.2))}
+        return _rprelu_params(self.params[name], c)
 
     def binary_dense_bn(self, x, units, *, name):
         c = x.shape[-1]
@@ -257,11 +354,17 @@ class FloatBuilder(_Base):
         return L.apply_activation(self._apply_bn(y, name), activation)
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
-                       pad_value=1, name, groups=1, dilation=1):
+                       pad_value=1, name, groups=1, dilation=1,
+                       input_shift=False):
+        if input_shift:
+            x = x + torch.as_tensor(self.params[name]["shift"]).to(x.device)
         y = _float_binary_conv(x, self._kernel(name, x), _pair(stride),
                                padding, pad_value, groups=groups,
                                dilation=_pair(dilation))
         return self._apply_bn(y, name)
+
+    def _rprelu_vectors(self, name, c):
+        return _rprelu_params(self.params[name], c)
 
     def binary_dense_bn(self, x, units, *, name):
         return self._apply_bn(
@@ -414,8 +517,53 @@ class ConvertBuilder(_Base):
                                _pair(stride)), _on(p["bn"], x))
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
-                       pad_value=1, name, groups=1, dilation=1):
-        p = self.params[name]
+                       pad_value=1, name, groups=1, dilation=1,
+                       input_shift=False):
+        return self._binary_conv(x, self.params[name], name, ksize,
+                                 stride=stride, padding=padding,
+                                 pad_value=pad_value, groups=groups,
+                                 dilation=dilation, input_shift=input_shift)
+
+    def binary_conv_pair(self, x, filters, *, names):
+        """The pair as one layer under the first name: the two filters and
+        BN transforms side by side (its input shift the pair's one, the same
+        values under both names)."""
+        first, second = names
+        pa, pb = self.params[first], self.params[second]
+        shift = np.asarray(pa["shift"], np.float32)
+        if not np.array_equal(shift, np.asarray(pb["shift"], np.float32)):
+            raise ValueError(f"{first} and {second} read one input: their "
+                             "input shifts differ")
+        joined = {
+            "kernel": np.concatenate([np.asarray(pa["kernel"], np.float32),
+                                      np.asarray(pb["kernel"], np.float32)],
+                                     axis=-1),
+            "bn": {k: np.concatenate([np.asarray(pa["bn"][k], np.float32),
+                                      np.asarray(pb["bn"][k], np.float32)])
+                   for k in pa["bn"]},
+            "shift": shift}
+        ranges = [self.int8_out_ranges[n] for n in names
+                  if n in self.int8_out_ranges]
+        return self._binary_conv(x, joined, first, 1, padding="VALID",
+                                 input_shift=True,
+                                 out_range=max(ranges) if ranges else None)
+
+    def _rprelu_vectors(self, name, c):
+        """The RPReLU's vectors, also written into the layer ``name``'s
+        entry as ``rprelu_shift_in``, ``rprelu_slope`` and
+        ``rprelu_shift_out``."""
+        vectors = _rprelu_params(self.params[name], c)
+        for key, v in zip(RPRELU_KEYS, vectors):
+            self.layers[name][f"rprelu_{key}"] = np.asarray(v, np.float32)
+        return vectors
+
+    def _binary_conv(self, x, p, name, ksize, *, stride=1, padding="SAME",
+                     pad_value=1, groups=1, dilation=1, input_shift=False,
+                     out_range=None):
+        """The artifact layer ``name`` of a binary conv with parameters
+        ``p``, and the conv's float forward."""
+        if out_range is None:
+            out_range = self.int8_out_ranges.get(name)
         channels_in = int(x.shape[-1])
         post_mul, post_bias = L.fold_batch_norm(p["bn"])
         kh, kw = _pair(ksize)
@@ -444,10 +592,14 @@ class ConvertBuilder(_Base):
             "groups": groups,
             "dilation": _pair(dilation),
         }
-        if name in self.int8_out_ranges:
+        if input_shift:
+            shift = np.asarray(p["shift"], np.float32)
+            self.layers[name]["shift"] = shift
+            x = x + torch.as_tensor(shift).to(x.device)
+        if out_range is not None:
             # int8-output binary conv: the requantisation is folded into the
             # per-channel transform, so the GEMM's epilogue writes int8.
-            out_scale = float(self.int8_out_ranges[name]) / 127.0
+            out_scale = float(out_range) / 127.0
             tr8 = fuse_output_transform(post_mul, post_bias, k,
                                         output_scale=out_scale)
             self.layers[name]["int8_multiplier"] = tr8.multiplier
@@ -588,6 +740,12 @@ def _f32(value, like):
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
+def _shifted(x, shift):
+    """``x``, or ``x + shift`` in float32 (what a shifted binary conv
+    signs) where a shift is given."""
+    return x if shift is None else x.to(torch.float32) + shift
+
+
 def _to_int8(y):
     """Round half away from zero and saturate to the symmetric int8 range."""
     return torch.clamp(round_half_away(y), -127, 127).to(torch.int8)
@@ -622,6 +780,20 @@ add_tail.launches = 0
 add_tail.fused = 0
 
 
+def rprelu(x, shift_in, slope, shift_out):
+    """ReActNet's RPReLU on a tensor (``kernels.residual.rprelu_plain``),
+    counted in ``rprelu.launches`` (``kernels.counts``, as ``concat`` is)
+    on any device. The builder's RPReLUs that the block kernel runs in its
+    epilogue count in ``rprelu.launches`` and ``rprelu.fused``."""
+    y = rprelu_plain(x, shift_in, slope, shift_out)
+    counts.count(rprelu)
+    return y
+
+
+rprelu.launches = 0
+rprelu.fused = 0
+
+
 class _DeferredBConv(_Lazy):
     """A float-output binary conv on the block kernel whose execution waits
     for its consumer. QuickNet's ``x = add(x, binary_conv_bn(x, ...))`` runs
@@ -634,15 +806,23 @@ class _DeferredBConv(_Lazy):
     the JAX package does, rather than a second conv that could differ from
     the fused one by a rounding. After a tail add written over ``x`` the
     conv's value alone is gone, and reading it raises.
+
+    A conv with a ``threshold`` (ReActNet's learned shift of its input,
+    added before the sign) is deferred only on a dense input, which no
+    dense block's concatenation or tail add reads: it runs on the block
+    kernel with its add and the RPReLU after it (``_FusedSum``); alone, it
+    runs the block without the add on ``x + threshold``, made in
+    float32.
     """
 
     def __init__(self, x, packed_filter, transform, params, block,
-                 unpacked_filter, tap_delta):
+                 unpacked_filter, tap_delta, threshold=None):
         self.x = x
         self.channels = packed_filter.shape[0]
         self._args = (packed_filter, transform, params)
         self._block = block
         self._kw = dict(unpacked_filter=unpacked_filter, tap_delta=tap_delta)
+        self.threshold = threshold
         self._value = None
         self._fused = None
 
@@ -654,16 +834,24 @@ class _DeferredBConv(_Lazy):
             raise RuntimeError("the conv's input was overwritten by its "
                                "fused tail add: its value alone is gone")
         if self._value is None:
-            self._value = (self._fused - self.x.to(self._fused.dtype)
-                           if self._fused is not None
-                           else self._run(has_residual=False))
+            if self._fused is not None:
+                self._value = self._fused - self.x.to(self._fused.dtype)
+            elif self.threshold is not None:
+                self._value = self._block(
+                    _shifted(self.x, self.threshold), *self._args,
+                    **self._kw, has_residual=False).to(self.x.dtype)
+            else:
+                self._value = self._run(has_residual=False)
         return self._value
 
     def fused_with(self, other):
         """``add(other, self)`` as one block, where ``other`` is the conv's
-        input and the conv has not run alone; else None."""
+        input and the conv has not run alone; else None. A thresholded
+        conv's sum waits for its consumer (``_FusedSum``)."""
         if other is not self.x or self._value is not None:
             return None
+        if self.threshold is not None:
+            return _FusedSum(self)
         if self._fused is None:
             self._fused = self._run(has_residual=True)
         return self._fused
@@ -702,6 +890,31 @@ class _DeferredBConv(_Lazy):
 
 
 _OVERWRITTEN = object()  # a deferred conv's value after its tail add
+
+
+class _FusedSum(_Lazy):
+    """ReActNet's ``add(x, conv)`` of a thresholded deferred conv and its
+    input, waiting for its consumer: an RPReLU of it runs in the same block
+    kernel launch, with the threshold in the signing (``with_rprelu``); any
+    other consumer reads ``to_float()``, the conv alone, then the add, which
+    equal the fused kernel's sum bit for bit."""
+
+    def __init__(self, conv):
+        self.conv = conv
+        self.channels = conv.channels
+        self._value = None
+
+    def to_float(self):
+        if self._value is None:
+            self._value = self.conv.x + self.conv.to_float()
+        return self._value
+
+    def with_rprelu(self, vectors):
+        """The sum's RPReLU (``vectors``: shift_in, slope, shift_out) by
+        one launch of the block kernel's ReActNet form."""
+        c = self.conv
+        return c._run(has_residual=True, threshold=c.threshold,
+                      rprelu=vectors)
 
 
 class _DeferredStem(_Lazy):
@@ -781,6 +994,16 @@ class PackedBuilder(_Base):
     gets the float chain, as every other float conv does. A dense block's
     transition (``transition``: a 1x1 conv, then a 2x2/2 average pool) on a
     bf16 stream that ``kernels.transition`` takes is one kernel likewise.
+
+    ReActNet-A's binary convs declare a learned shift of their input
+    (``input_shift=True``, the layer's ``shift``), added in float32 before
+    the sign. A stride-1 3x3 conv on the block kernel with its add of ``x``
+    waits with that add (``_FusedSum``) for an RPReLU (``rprelu``), which
+    runs in the same launch with the shift as the band's threshold; every
+    other shifted conv, and every other consumer, runs on ``x + shift``
+    made in float32, and an RPReLU elsewhere by the plain chain. The
+    doubling 1x1 pair (``binary_conv_pair``) is the one conv of twice the
+    width that ``convert_model`` joins it into.
 
     ``domain="packed"``: binary layers chain through bitpacked activations
     (convert-time thresholds and sign-flipped filters), pooling and flatten
@@ -942,6 +1165,25 @@ class PackedBuilder(_Base):
             return x
         return add_tail(_float_view(x), _float_view(y))
 
+    def add_repeated(self, y, r):
+        return super().add_repeated(_float_view(y), _float_view(r))
+
+    binary_conv_pair = _joined_pair
+
+    def rprelu(self, x, name):
+        """The RPReLU of the layer ``name`` (its ``rprelu_*`` vectors):
+        where ``x`` is a thresholded conv's sum with its input
+        (``_FusedSum``), in that block's kernel launch (counted in
+        ``rprelu.fused`` too); else by ``rprelu`` on the float view."""
+        a = self.layers[name]
+        vectors = tuple(a[f"rprelu_{k}"] for k in RPRELU_KEYS)
+        if isinstance(x, _FusedSum):
+            y = x.with_rprelu(vectors)
+            counts.count(rprelu)
+            counts.count(rprelu, "fused")
+            return y
+        return rprelu(_float_view(x), *vectors)
+
     def transition(self, x, filters, *, name):
         """The transition's conv and pool in one kernel
         (``kernels.transition``, on the card the hand-written one) where the
@@ -1042,20 +1284,25 @@ class PackedBuilder(_Base):
         y = y + a["bias"]
         return self._store(L.apply_activation(y, activation))
 
-    def _packed_in(self, x):
-        """A function giving the packed words of a binary layer's input."""
-        if isinstance(x, _BinaryStream):
+    def _packed_in(self, x, shift=None):
+        """A function giving the packed words of a binary layer's input
+        (of the input plus ``shift``, where one is given)."""
+        if isinstance(x, _BinaryStream) and shift is None:
             return x.packed
         x = _float_view(x)
-        return lambda: quantize(x)
+        return lambda: quantize(_shifted(x, shift))
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
-                       pad_value=1, name, groups=1, dilation=1):
+                       pad_value=1, name, groups=1, dilation=1,
+                       input_shift=False):
+        a = self.layers[name]
+        # ReActNet's learned shift of the input, added before the sign.
+        shift = a["shift"] if input_shift else None
         if isinstance(x, Int8Tensor):
             # Signs are read straight off the int8 values (bit = v < 0,
-            # exact at zero point 0): no dequantisation pass.
-            x = x.values
-        a = self.layers[name]
+            # exact at zero point 0): no dequantisation pass, but where the
+            # input is shifted first.
+            x = x.values if shift is None else x.to_float()
         params = BConv2DParams(
             channels_in=int(a["channels_in"]),
             stride=_pair(stride),
@@ -1081,7 +1328,7 @@ class PackedBuilder(_Base):
                 dilation=params.dilation), domain, out_kind, float_in)
 
         if self.domain == "packed" and "thresholds" in a:
-            packed_in = self._packed_in(x)
+            packed_in = self._packed_in(x, shift)
 
             def run(out_kind):
                 words = packed_in()
@@ -1107,20 +1354,28 @@ class PackedBuilder(_Base):
                 clamp_min=transform.clamp_min, clamp_max=transform.clamp_max,
                 multiplier=a["int8_multiplier"], bias=a["int8_bias"])
             return Int8Tensor(
-                bconv2d(quantize(x), pf, tr8, params, output_kind="int8",
-                        gemm=self.gemm), a["out_scale"])
+                bconv2d(quantize(_shifted(x, shift)), pf, tr8, params,
+                        output_kind="int8", gemm=self.gemm), a["out_scale"])
         # The block kernel reads bfloat16 or float32 activations only.
         k = lowering(*x.shape[:3], "float", "float", x.is_floating_point())
         if k == "residual":
             delta = a.get("tap_delta")
-            if x.shape[-1] == filters or self._buffer_of(x) is not None:
+            if shift is not None:
+                if x.shape[-1] == filters and x.is_contiguous():
+                    # ReActNet's: the threshold in the block kernel's
+                    # signing, where the conv's add of x follows.
+                    return _DeferredBConv(x, pf, transform, params,
+                                          self.residual_block, upf, delta,
+                                          threshold=shift)
+            elif x.shape[-1] == filters or self._buffer_of(x) is not None:
                 # A residual block's conv waits for its add, a dense
                 # layer's for its concatenation.
                 return _DeferredBConv(x, pf, transform, params,
                                       self.residual_block, upf, delta)
             return self._store(self.residual_block(
-                x, pf, transform, params, has_residual=False,
-                unpacked_filter=upf, tap_delta=delta))
+                _shifted(x, shift), pf, transform, params,
+                has_residual=False, unpacked_filter=upf, tap_delta=delta))
+        x = _shifted(x, shift)
         if k == "s2d":
             y = bconv2d_mxu_s2d(x, pf, transform, params, "float",
                                 unpacked_filter=upf)

@@ -20,7 +20,7 @@ import torch
 from ..core.params import BConv2DParams, tflite_same_padding
 from ..core.types import Padding
 from . import layers as L
-from .builder import _Base, _pair
+from .builder import _Base, _joined_pair, _pair
 
 __all__ = ["binary_layer_shapes", "binary_layer_modes", "transition_layers"]
 
@@ -62,7 +62,8 @@ class _ShapeRecorder(_Base):
     # -- binary layers: record ----------------------------------------------
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
-                       pad_value=1, name, groups=1, dilation=1):
+                       pad_value=1, name, groups=1, dilation=1,
+                       input_shift=False):
         kh, kw = _pair(ksize)
         in_h, in_w, c_in = int(x.shape[1]), int(x.shape[2]), int(x.shape[-1])
         params = BConv2DParams(
@@ -90,6 +91,12 @@ class _ShapeRecorder(_Base):
                             dilation=_pair(dilation))
         return L.conv2d(x, w, _pair(stride), padding, groups=groups,
                         dilation=_pair(dilation))
+
+    # The pair runs as the one conv that ``convert_model`` joins it into.
+    binary_conv_pair = _joined_pair
+
+    def rprelu(self, x, name):
+        return x.clone()
 
     def binary_dense_bn(self, x, units, *, name):
         self.binary_denses.append({
@@ -170,8 +177,8 @@ def _float_reader(method):
 
 
 for _method in ("avg_pool", "global_avg_pool", "add", "concat", "add_tail",
-                "activation", "softmax", "conv_bn", "depthwise_conv_bn",
-                "dense"):
+                "add_repeated", "rprelu", "activation", "softmax", "conv_bn",
+                "depthwise_conv_bn", "dense"):
     setattr(_ReadRecorder, _method, _float_reader(_method))
 
 

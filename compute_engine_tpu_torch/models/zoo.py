@@ -30,6 +30,15 @@ publications:
   channels), zero-padded; a stem of three float 3x3 convs, the last two
   grouped; max-pool + grouped 1x1 transitions. The port's own: the JAX
   package has no such model.
+* ReActNet-A — Liu, Shen, Savvides, Xing, Cheng, "ReActNet: Towards Precise
+  Binary Neural Networks with Generalized Activation Functions", ECCV 2020
+  (arXiv:2003.03488), and the authors' ``mobilenet/reactnet.py``. A float
+  3x3/2 stem conv to 32 channels, then 13 blocks of a binary 3x3 conv (the
+  block's width, zero-padded, stride 2 where the width changes to other
+  than 64) and a binary 1x1 conv (two side by side where the width
+  doubles), each conv reading the signs of its input plus a learned shift
+  per channel, each followed by BN, its input (average-pooled at stride 2)
+  added, and RPReLU. The port's own.
 
 NOTE: block counts/filters are faithful to the papers, but exact parity with
 larq-zoo layer hyperparameters (initializers, minor stem details) cannot be
@@ -294,6 +303,50 @@ def meliusnet22(b, x, *, num_classes=1000):
         num_classes=num_classes)
 
 
+# ---------------------------------------------------------------------------
+# ReActNet-A
+# ---------------------------------------------------------------------------
+
+
+# The widths of ReActNet-A's 13 blocks, after its 32-channel stem.
+REACTNET_A_WIDTHS = (64, 128, 128, 256, 256, 512, 512, 512, 512, 512, 512,
+                     1024, 1024)
+
+
+def _reactnet_block(b, x, c, c_out, name):
+    """One ReActNet-A block on ``x`` of ``c`` channels, to ``c_out``."""
+    stride = 2 if c_out != c and c_out != 64 else 1
+    # sign(x + shift) -> binary 3x3 (zero padding) -> BN, plus x (pooled
+    # at stride 2), RPReLU.
+    y = b.binary_conv_bn(x, c, 3, stride=stride, pad_value=0,
+                         input_shift=True, name=f"{name}_conv_3x3")
+    r = x if stride == 1 else b.avg_pool(x, 2, 2)
+    x = b.rprelu(b.add(r, y), name=f"{name}_conv_3x3")
+    # sign(x + shift) -> binary 1x1 -> BN, plus x, RPReLU; where the width
+    # doubles two 1x1 convs of the same signs, x added to each.
+    if c_out == c:
+        y = b.binary_conv_bn(x, c, 1, padding="VALID", input_shift=True,
+                             name=f"{name}_conv_1x1")
+        x = b.add(y, x)
+    else:
+        y = b.binary_conv_pair(x, c, names=(f"{name}_conv_1x1",
+                                            f"{name}_conv_1x1_b"))
+        x = b.add_repeated(y, x)
+    return b.rprelu(x, name=f"{name}_conv_1x1")
+
+
+def reactnet_a(b, x, *, num_classes=1000):
+    # The stem: a float 3x3/2 conv with BN and no activation.
+    x = b.conv_bn(x, 32, 3, stride=2, name="stem_conv")
+    c = 32
+    for i, c_out in enumerate(REACTNET_A_WIDTHS):
+        x = _reactnet_block(b, x, c, c_out, f"block_{i}")
+        c = c_out
+    x = b.global_avg_pool(x)
+    x = b.dense(x, num_classes, name="head")
+    return b.softmax(x)
+
+
 def tiny_quicknet(section_filters=(32, 64), section_blocks=(1, 1),
                   num_classes=16, input_size=32):
     """Reduced-QuickNet ModelSpec factory for tests / dry runs."""
@@ -319,6 +372,7 @@ MODELS = {
     "binary_densenet45": ModelSpec("binary_densenet45", binary_densenet45),
     # The port's own, after the JAX package's models:
     "meliusnet22": ModelSpec("meliusnet22", meliusnet22),
+    "reactnet_a": ModelSpec("reactnet_a", reactnet_a),
 }
 
 

@@ -247,11 +247,12 @@ def test_committed_table_names_an_nvidia_card():
     assert names <= {"residual", "bgemm", "mxu", "s2d"}, names
 
 
-# sha256 of the committed table's entries other than those at "s1/zero",
-# and of its ``_meta`` without those cells' ``raw_ms`` rows and without
-# ``remeasured``, as ``_kept_digest`` reads them: the table before its
-# "s1/zero" entries were measured again with the zero-padded block kernel
-# among the candidates.
+# sha256 of the committed table's entries other than those that a partial
+# run of the planner wrote, and of its ``_meta`` without those cells'
+# ``raw_ms`` rows and without ``partial_runs``, as ``_kept_digest`` reads
+# them: the table before its "s1/zero" entries were measured again with the
+# zero-padded block kernel among the candidates and ReActNet-A's shapes
+# were added.
 KEPT_DIGEST = ("1dd662afb6d1235b65f34d0034188b23"
                "d083311d1ee7a2d98f5b0a66410ea55f")
 
@@ -260,35 +261,53 @@ def _zero_s1_row(label):
     return '"stride":[1,1]' in label and '"pad_value":0' in label
 
 
+def _partial(data):
+    """The entries (key text, geometry) and the ``raw_ms`` labels that the
+    partial runs recorded in ``_meta["partial_runs"]`` wrote."""
+    runs = data["_meta"].get("partial_runs", [])
+    return ({tuple(e) for r in runs for e in r["entries"]},
+            {c for r in runs for c in r["cells"]})
+
+
 def _kept_digest(data):
     import hashlib
 
-    # A key measured at "s1/zero" only (MeliusNet-22's) has no other entry.
-    entries = {k: {g: w for g, w in v.items() if g != "s1/zero"}
+    written, rows = _partial(data)
+    entries = {k: {g: w for g, w in v.items() if (k, g) not in written}
                for k, v in data.items() if not k.startswith("_")}
     entries = {k: v for k, v in entries.items() if v}
     meta = {k: v for k, v in data["_meta"].items()
-            if k not in ("raw_ms", "remeasured")}
+            if k not in ("raw_ms", "partial_runs")}
     meta["raw_ms"] = {k: v for k, v in data["_meta"]["raw_ms"].items()
-                      if not _zero_s1_row(k)}
+                      if k not in rows}
     return hashlib.sha256(json.dumps([entries, meta],
                                      sort_keys=True).encode()).hexdigest()
 
 
+def _run(data, run):
+    (record,) = [r for r in data["_meta"]["partial_runs"] if r["run"] == run]
+    return record
+
+
 def test_committed_table_keeps_every_other_entry():
     """Only the zero-padded stride-1 entries were measured again (12 cells
-    of Bi-RealNet-18's, 21 of MeliusNet-22's): every other entry, every
-    other field of ``_meta`` and every other time are what they were, and
-    each re-measured cell's row names the block kernel and the card that
-    measured it."""
+    of Bi-RealNet-18's, 21 of MeliusNet-22's) and ReActNet-A's added: every
+    other entry, every other field of ``_meta`` and every other time are
+    what they were, each re-measured cell's row names the block kernel, and
+    each record names the card that measured it and holds every entry
+    (exact and bucket) of its cells."""
     data = json.load(open(TABLE))
     assert _kept_digest(data) == KEPT_DIGEST
-    rows = {k: v for k, v in data["_meta"]["raw_ms"].items()
-            if _zero_s1_row(k)}
-    assert len(rows) == 33
-    assert all("float/residual" in v for v in rows.values())
-    remeasured = data["_meta"]["remeasured"]["s1/zero"]
-    assert remeasured["card"].startswith("NVIDIA")
+    zero = _run(data, "--geometry s1/zero")
+    assert len(zero["cells"]) == 33 and all(map(_zero_s1_row, zero["cells"]))
+    assert all("float/residual" in data["_meta"]["raw_ms"][k]
+               for k in zero["cells"])
+    assert {g for _, g in zero["entries"]} == {"s1/zero"}
+    assert len(_run(data, "--models reactnet_a")["cells"]) == 54
+    for record in data["_meta"]["partial_runs"]:
+        assert record["card"].startswith("NVIDIA")
+        assert all(data[k][g] for k, g in record["entries"])
+        assert len(record["entries"]) == 2 * len(record["cells"])
 
 
 def test_committed_table_runs_birealnets_stride1_convs_on_the_block():
@@ -332,8 +351,63 @@ def test_planner_measures_one_geometry_again(monkeypatch, tmp_path):
     assert all(data["_meta"]["raw_ms"][k] == {"float/residual": 2.0,
                                               "float/s2d": 1.0}
                for k in labels)
-    assert set(data["_meta"]["remeasured"]["s1/zero"]) == {
-        "card", "torch", "cuda", "timer", "written_by"}
+    record = data["_meta"]["partial_runs"][-1]
+    assert record["run"] == "--geometry s1/zero"
+    assert record["cells"] == sorted(labels)
+    assert {g for _, g in record["entries"]} == {"s1/zero"}
+    assert set(record) == {"run", "card", "torch", "cuda", "timer",
+                           "written_by", "cells", "entries"}
+
+
+def test_planner_adds_a_models_shapes(monkeypatch, tmp_path):
+    """``autotune --models reactnet_a``, over the committed table without
+    that model's run, measures the cells that run recorded, writes every
+    committed entry, field and time back as it was, the new times added to
+    ``raw_ms`` and a record of the same cells and entries to
+    ``partial_runs``."""
+    old = json.load(open(TABLE))
+    added = _run(old, "--models reactnet_a")
+    written = {tuple(e) for e in added["entries"]}
+    before = {k: {g: w for g, w in v.items() if (k, g) not in written}
+              for k, v in old.items() if not k.startswith("_")}
+    before = {k: v for k, v in before.items() if v}
+    before["_meta"] = dict(old["_meta"], partial_runs=[
+        r for r in old["_meta"]["partial_runs"] if r is not added])
+    before["_meta"]["raw_ms"] = {k: v for k, v in old["_meta"][
+        "raw_ms"].items() if k not in added["cells"]}
+    path = tmp_path / "committed.json"
+    path.write_text(json.dumps(before))
+    monkeypatch.setattr(select, "_TABLE_PATH", str(path))
+    monkeypatch.setattr(select, "_DEFAULT_TABLE", select._entries(before))
+    cells = []
+
+    def measure(cell, device="cuda", update_table=True):
+        cells.append(cell)
+        kind, r, _, domain, out_kind = cell
+        key, bucket, geo = autotune._keys(kind, r, domain, out_kind)
+        for k in (key, bucket):
+            kernel_table().setdefault(k, {})[geo] = "mxu"
+        return {"float/bgemm": 2.0, "float/mxu": 1.0}
+
+    monkeypatch.setattr(autotune, "measure", measure)
+    out = tmp_path / "table.json"
+    try:
+        autotune.main(["--models", "reactnet_a", "--out", str(out)])
+    finally:
+        monkeypatch.undo()
+        select.reset_table()
+    data = json.load(open(out))
+    labels = {autotune.cell_label(c) for c in cells}
+    record = data["_meta"]["partial_runs"][-1]
+    assert sorted(labels) == record["cells"] == added["cells"]
+    assert record["entries"] == added["entries"]
+    assert record["written_by"].startswith("python -m")
+    assert _kept_digest(data) == _kept_digest(old) == KEPT_DIGEST
+    assert all(data["_meta"]["raw_ms"][k] == {"float/bgemm": 2.0,
+                                              "float/mxu": 1.0}
+               for k in labels)
+    with pytest.raises(SystemExit):
+        autotune.main(["--models", "reactnet_a", "--fresh"])
 
 
 def test_committed_table_covers_zoo_shapes():

@@ -12,7 +12,7 @@ from compute_engine_tpu_torch.models.zoo import MODELS
 
 
 # The port's own models, which the JAX package does not have.
-PORT_ONLY = ("meliusnet22",)
+PORT_ONLY = ("meliusnet22", "reactnet_a")
 
 
 def test_same_zoo():

@@ -198,11 +198,13 @@ class _ShapeRecorder(InitBuilder):
         self.convs, self.denses = [], []
 
     def binary_conv_bn(self, x, filters, ksize, *, stride=1, padding="SAME",
-                       pad_value=1, name, groups=1, dilation=1):
+                       pad_value=1, name, groups=1, dilation=1,
+                       input_shift=False):
         y = super().binary_conv_bn(x, filters, ksize, stride=stride,
                                    padding=padding, pad_value=pad_value,
                                    name=name, groups=groups,
-                                   dilation=dilation)
+                                   dilation=dilation,
+                                   input_shift=input_shift)
         self.convs.append((name, tuple(x.shape), tuple(y.shape), _pair(ksize),
                            _pair(stride), padding, pad_value, groups,
                            _pair(dilation)))
